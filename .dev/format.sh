@@ -5,4 +5,4 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 ARGS=()
 [[ "${1:-}" == "--check" ]] && ARGS+=(--check --diff)
-exec black "${ARGS[@]}" landhydrology_tpu tests experiments bench.py __graft_entry__.py
+exec black "${ARGS[@]}" landhydrology tests experiments bench.py chip_smoke.py

@@ -15,33 +15,33 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def main():
-    import landhydrology_tpu.adaptive as adaptive
-    import landhydrology_tpu.checkpoint as ckpt
-    import landhydrology_tpu.cli as cli
-    import landhydrology_tpu.config as config
-    import landhydrology_tpu.constants as con
-    import landhydrology_tpu.diagnostics as diag
-    import landhydrology_tpu.domains as dom
-    import landhydrology_tpu.imex as imex
-    import landhydrology_tpu.models.land as land
-    import landhydrology_tpu.models.soil as soil
-    import landhydrology_tpu.models.soil.freeze_thaw as ft
-    import landhydrology_tpu.models.soil.heat as heat
-    import landhydrology_tpu.models.soil.surface_fluxes as sf
-    import landhydrology_tpu.models.soil.water as water
-    import landhydrology_tpu.ops.pallas.column_kernel as ck
-    import landhydrology_tpu.ops.stencil as st
-    import landhydrology_tpu.ops.tridiag as td
-    import landhydrology_tpu.parallel.halo as ph
-    import landhydrology_tpu.parallel.mesh as pm
-    import landhydrology_tpu.parallel.stepping as pst
-    import landhydrology_tpu.runtime.io as rio
-    import landhydrology_tpu.simulations as sims
-    import landhydrology_tpu.timestepping as ts
+    import landhydrology.adaptive as adaptive
+    import landhydrology.checkpoint as ckpt
+    import landhydrology.cli as cli
+    import landhydrology.config as config
+    import landhydrology.constants as con
+    import landhydrology.diagnostics as diag
+    import landhydrology.domains as dom
+    import landhydrology.imex as imex
+    import landhydrology.models.land as land
+    import landhydrology.models.soil as soil
+    import landhydrology.models.soil.freeze_thaw as ft
+    import landhydrology.models.soil.heat as heat
+    import landhydrology.models.soil.surface_fluxes as sf
+    import landhydrology.models.soil.water as water
+    import landhydrology.ops.stencil as st
+    import landhydrology.ops.tridiag as td
+    import landhydrology.parallel.halo as ph
+    import landhydrology.parallel.mesh as pm
+    import landhydrology.parallel.stepping as pst
+    import landhydrology.segment as segment
+    import landhydrology.runtime.io as rio
+    import landhydrology.simulations as sims
+    import landhydrology.timestepping as ts
 
     sections = [
-        ("landhydrology_tpu.constants", con),
-        ("landhydrology_tpu.domains", dom),
+        ("landhydrology.constants", con),
+        ("landhydrology.domains", dom),
         ("models.soil (water)", water),
         ("models.soil (heat)", heat),
         ("models.soil (model/BCs)", soil),
@@ -50,7 +50,7 @@ def main():
         ("models.soil.freeze_thaw", ft),
         ("ops.stencil", st),
         ("ops.tridiag", td),
-        ("ops.pallas.column_kernel", ck),
+        ("segment", segment),
         ("timestepping", ts),
         ("adaptive", adaptive),
         ("imex", imex),
@@ -78,7 +78,7 @@ def main():
             obj = getattr(mod, name)
             if inspect.ismodule(obj):
                 continue
-            if getattr(obj, "__module__", "").startswith("landhydrology_tpu") and (
+            if getattr(obj, "__module__", "").startswith("landhydrology") and (
                 inspect.isclass(obj) or inspect.isfunction(obj)
             ):
                 if obj.__module__ != mod.__name__:

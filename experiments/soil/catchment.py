@@ -1,4 +1,4 @@
-"""Synthetic catchment — storm-runoff showcase composing the TPU build's
+"""Synthetic catchment — storm-runoff showcase composing the package's
 capabilities beyond the reference (which is a single uniform column,
 SURVEY.md §2 rows 13-15):
 
@@ -17,7 +17,7 @@ runoff concentration ratio, infiltration partition, and the water-mass
 closure residual.
 
 Usage:
-    python experiments/soil/catchment.py                       # TPU
+    python experiments/soil/catchment.py                       # GPU
     python experiments/soil/catchment.py --nx 16 --ny 16 --hours 0.5 --platform cpu
     python experiments/soil/catchment.py --plot                # + figures
 """
@@ -61,7 +61,7 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         PrescribedTemperatureModel,
         Simulation,
         SoilColumnBC,
@@ -72,15 +72,15 @@ def main():
         VariableDepthColumn,
         VerticalFlux,
     )
-    from landhydrology_tpu.models.land import (
+    from landhydrology.models.land import (
         KinematicWaveRouting,
         LandModel,
         SurfaceWaterModel,
         initialize_states,
         kinematic_wave_dt_limit,
     )
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.timestepping import SSPRK33
 
     dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     nx, ny, nz = args.nx, args.ny, args.nz
@@ -109,7 +109,7 @@ def main():
     )
 
     if args.atmos:
-        from landhydrology_tpu import PrescribedAtmosForcing, SoilEnergyModel
+        from landhydrology import PrescribedAtmosForcing, SoilEnergyModel
 
         energy_model = SoilEnergyModel()
         top_bc = PrescribedAtmosForcing(
@@ -165,8 +165,8 @@ def main():
             "theta_i": jnp.zeros((nz, nx, ny), dtype=dtype),
         }
         if args.atmos:
-            from landhydrology_tpu.constants import default_earth_param_set as ps
-            from landhydrology_tpu.models.soil.heat import (
+            from landhydrology.constants import default_earth_param_set as ps
+            from landhydrology.models.soil.heat import (
                 volumetric_heat_capacity,
                 volumetric_internal_energy,
             )
@@ -217,8 +217,8 @@ def main():
         # trapezoidal quadrature of the diagnosed evaporation over the
         # saved trajectory (MOST evaporation leaves the budget); coarse but
         # closes the storm balance to the save-interval resolution
-        from landhydrology_tpu.domains import make_function_space
-        from landhydrology_tpu.models.land import (
+        from landhydrology.domains import make_function_space
+        from landhydrology.models.land import (
             _diagnose_state_T,
             surface_exchange,
         )

@@ -36,16 +36,6 @@ def main():
     p.add_argument("--dt", type=float, default=120.0)
     p.add_argument("--window", type=int, default=240,
                    help="forcing window (steps) per device dispatch")
-    p.add_argument("--engine", type=str, default="fused",
-                   choices=("xla", "fused"),
-                   help="'fused' streams the forcing rows THROUGH the "
-                        "VMEM-resident Pallas kernel (scalar rows in SMEM, "
-                        "per-column rain as tiled blocks); 'xla' is the "
-                        "per-step jit scan")
-    p.add_argument("--steps-per-call", type=int, default=24,
-                   help="fused-engine kernel segment length (must divide "
-                        "the window)")
-    p.add_argument("--tile-cols", type=int, default=512)
     p.add_argument("--workdir", type=str, default="/tmp/lh_forced")
     p.add_argument("--platform", type=str, default=None)
     p.add_argument("--keep-forcing", action="store_true",
@@ -60,16 +50,14 @@ def main():
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    # share the CLI's cache policy (honors LANDHYDROLOGY_COMPCACHE and its
-    # location) instead of duplicating it here (ADVICE r4)
-    from landhydrology_tpu.cli import _enable_compilation_cache
+    from landhydrology.compile_cache import enable_compile_cache
 
-    _enable_compilation_cache()
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         PrescribedAtmosForcing,
         SoilColumnBC,
@@ -80,20 +68,20 @@ def main():
         SoilParams,
         VerticalFlux,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.diagnostics import energy_total, water_mass
-    from landhydrology_tpu.models.land import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.diagnostics import energy_total, water_mass
+    from landhydrology.models.land import (
         LandModel,
         SurfaceWaterModel,
         initialize_states,
     )
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
-    from landhydrology_tpu.runtime import ForcingReader, run_forced, write_forcing
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.runtime import ForcingReader, run_forced, write_forcing
+    from landhydrology.timestepping import SSPRK33
 
     os.makedirs(args.workdir, exist_ok=True)
     dtype = jnp.float32
@@ -175,9 +163,6 @@ def main():
         Yf, tf = run_forced(
             land, Y, Ya, reader, SSPRK33(), dt=args.dt,
             window=args.window, on_window=on_window,
-            engine=args.engine,
-            steps_per_call=args.steps_per_call,
-            tile_cols=args.tile_cols,
             overlap=not args.no_overlap,
         )
         # force completion before reading the clock (async dispatch)
@@ -190,12 +175,11 @@ def main():
     m0 = float(water_mass(Y, dz)) + float(jnp.sum(Y["surface"]["h_s"]))
     mf = float(water_mass(Yf, dz)) + float(jnp.sum(Yf["surface"]["h_s"]))
     print(json.dumps({
-        "metric": f"forced-reanalysis grid-points/s ({args.engine} forced engine, incl. IO)",
+        "metric": "forced-reanalysis grid-points/s (forced scan, incl. IO)",
         "value": pts / wall,
         "unit": "grid-points/s",
         "detail": {
             "ncol": ncol, "nz": nz, "steps": n_steps, "window": args.window,
-            "engine": args.engine,
             "windows_dispatched": len(windows),
             "overlap": not args.no_overlap,
             "native_reader": native, "prefetch_hits": int(hits),

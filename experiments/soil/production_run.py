@@ -1,10 +1,10 @@
-"""Production-style long run: fused kernel + checkpoints + async IO.
+"""Production-style long run: compiled stepping + checkpoints + async IO.
 
 Exercises the full runtime stack the way a large deployment would
 (SURVEY.md §5 subsystems working together):
 
-- fused multi-step Pallas stepping (``Simulation(engine='pallas')``),
-- periodic orbax/npz checkpoints with crash-safe resume (``--resume``),
+- one compiled ``Simulation`` loop segmented at save points,
+- periodic npz checkpoints with crash-safe resume (``--resume``),
 - saved states streamed through the C++ async trajectory sink,
 - NaN guards + conservation monitors between segments,
 - grid-points/s throughput report.
@@ -36,7 +36,6 @@ def main():
     p.add_argument("--workdir", type=str, default="/tmp/lh_production")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--platform", type=str, default=None)
-    p.add_argument("--tile-cols", type=int, default=512)
     args = p.parse_args()
 
     import jax
@@ -47,7 +46,7 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         FreeDrainage,
         Simulation,
@@ -60,19 +59,19 @@ def main():
         VerticalFlux,
         initialize_states,
     )
-    from landhydrology_tpu.checkpoint import CheckpointManager
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.diagnostics import energy_total, nan_guard, water_mass
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.checkpoint import CheckpointManager
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.diagnostics import energy_total, nan_guard, water_mass
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         k_solid,
         ksat_frozen,
         ksat_unfrozen,
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
-    from landhydrology_tpu.runtime import TrajectorySink
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.runtime import TrajectorySink
+    from landhydrology.timestepping import SSPRK33
 
     os.makedirs(args.workdir, exist_ok=True)
     dtype = jnp.float32
@@ -139,9 +138,6 @@ def main():
     sink = TrajectorySink(
         os.path.join(args.workdir, "trajectory.bin"), append=args.resume
     )
-    # fused kernel on TPU; interpret-mode Pallas on CPU would be slow
-    engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-
     def segment_callback(Yc, t):
         """Checkpoint + stream + guard at every save point (the callback
         subsystem doing the runtime work, one compiled loop throughout)."""
@@ -170,8 +166,6 @@ def main():
         tspan=(t0, tf),
         saveat=seg_seconds,
         callbacks=[segment_callback],
-        engine=engine,
-        tile_cols=args.tile_cols,
     )
     sim.t = t0
     wall0 = time.time()

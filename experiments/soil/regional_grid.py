@@ -1,10 +1,10 @@
 """Regional heterogeneous-grid run — north-star config 4 (driver
 ``BASELINE.json``): ~1e5 independent columns with heterogeneous van
-Genuchten parameters and mixed per-column BC types on a single host,
-integrated with the fused multi-step Pallas kernel.
+Genuchten parameters and mixed per-column BC types on a single device,
+integrated with one compiled ``lax.scan``.
 
 Usage:
-    python experiments/soil/regional_grid.py                 # TPU, 131072 cols
+    python experiments/soil/regional_grid.py                 # GPU, 131072 cols
     python experiments/soil/regional_grid.py --ncol 2048 --platform cpu
 """
 
@@ -25,8 +25,6 @@ def main():
     p.add_argument("--nz", type=int, default=48)
     p.add_argument("--hours", type=float, default=1.0)
     p.add_argument("--dt", type=float, default=5.0)
-    p.add_argument("--steps-per-call", type=int, default=48)
-    p.add_argument("--tile-cols", type=int, default=512)
     p.add_argument("--platform", type=str, default=None)
     p.add_argument("--out", type=str, default=None)
     args = p.parse_args()
@@ -39,7 +37,7 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         BatchedBC,
         BCKind,
         Column,
@@ -52,18 +50,18 @@ def main():
         VerticalFlux,
         initialize_states,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.diagnostics import water_mass
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.diagnostics import water_mass
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         k_solid,
         ksat_frozen,
         ksat_unfrozen,
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.models.soil.rhs import make_rhs
+    from landhydrology.timestepping import SSPRK33
 
     dtype = jnp.float32  # perf driver: single precision on every backend
     ncol, nz = args.ncol, args.nz
@@ -133,25 +131,17 @@ def main():
 
     Y, Ya = initialize_states(model, ic, 0.0)
     n_steps = int(round(args.hours * 3600.0 / args.dt))
-    spc = min(args.steps_per_call, n_steps)
-    while n_steps % spc:
-        spc -= 1
-    run1 = make_fused_column_run(
-        model,
-        SSPRK33(),
-        dt=args.dt,
-        steps_per_call=spc,
-        tile_cols=args.tile_cols,
-        interpret=jax.default_backend() != "tpu",
-    )
+    rhs = make_rhs(model)
+    stepper = SSPRK33()
+    dt = jnp.asarray(args.dt, dtype=dtype)
 
     @jax.jit
     def run(Y, t0):
         def body(carry, _):
             Y, t = carry
-            return (run1(Y, t), t + spc * args.dt), None
+            return (stepper.step(rhs, Y, Ya, t, dt), t + dt), None
 
-        (Yf, tf), _ = jax.lax.scan(body, (Y, t0), None, length=n_steps // spc)
+        (Yf, tf), _ = jax.lax.scan(body, (Y, t0), None, length=n_steps)
         return Yf
 
     m0 = float(water_mass(Y, 2.0 / nz, param_set=ps))

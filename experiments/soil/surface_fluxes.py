@@ -1,6 +1,6 @@
 """Bare-soil evaporation experiment with Monin-Obukhov surface forcing.
 
-TPU-native port of ``/root/reference/experiments/SoilModel/surface_fluxes.jl``
+Port of ``/root/reference/experiments/SoilModel/surface_fluxes.jl``
 (480-day drydown of a sandy-loam column driven by a prescribed atmosphere,
 dt = 160 s, saves every 4 h).  Instead of Plots.jl figures the driver writes
 the saved trajectory and post-processed surface diagnostics (surface
@@ -49,7 +49,7 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         PrescribedAtmosForcing,
         Simulation,
@@ -62,9 +62,9 @@ def main():
         VerticalFlux,
         initialize_states,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as param_set
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as param_set
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         k_solid,
         ksat_frozen,
         ksat_unfrozen,
@@ -72,14 +72,14 @@ def main():
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
-    from landhydrology_tpu.models.soil.surface_fluxes import (
+    from landhydrology.models.soil.surface_fluxes import (
         compute_turbulent_surface_fluxes,
     )
-    from landhydrology_tpu.models.soil.water import (
+    from landhydrology.models.soil.water import (
         hydrostatic_profile,
         volumetric_liquid_fraction,
     )
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.timestepping import SSPRK33
 
     # soil composition (surface_fluxes.jl:27-58)
     nu = 0.55

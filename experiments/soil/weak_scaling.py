@@ -1,8 +1,8 @@
 """Weak-scaling harness: columns/s vs device count at fixed per-device work.
 
 North-star target: >80% weak-scaling efficiency from 1 chip to N devices
-(driver ``BASELINE.json``).  On a single-chip session this runs on virtual
-CPU devices (``--virtual N``); on a pod slice it uses the real devices.
+(``BASELINE.json``).  Without accelerators it runs on virtual CPU devices
+(``--virtual N``); on a multi-GPU host it uses the real devices.
 
 Usage:
     python experiments/soil/weak_scaling.py --virtual 8 --cols-per-device 4096
@@ -30,8 +30,8 @@ def main():
                    help="include halo-exchanged lateral coupling")
     p.add_argument("--mode", choices=["pjit", "shard_map", "fused"],
                    default="pjit",
-                   help="'fused' = the Pallas kernel inside shard_map "
-                        "(the production multi-chip hot loop)")
+                   help="'fused' = the multi-step segment runner inside "
+                        "shard_map with the lateral Lie split")
     p.add_argument("--steps-per-call", type=int, default=16)
     args = p.parse_args()
 
@@ -44,7 +44,7 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         SoilColumnBC,
         SoilComponentBC,
@@ -55,26 +55,23 @@ def main():
         VerticalFlux,
         initialize_states,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
-    from landhydrology_tpu.models.soil.model import LateralSurfaceCoupling
-    from landhydrology_tpu.parallel import make_column_mesh, shard_state
-    from landhydrology_tpu.parallel.mesh import near_square_factors
-    from landhydrology_tpu.parallel.stepping import (
+    from landhydrology.models.soil.model import LateralSurfaceCoupling
+    from landhydrology.parallel import make_column_mesh, shard_state
+    from landhydrology.parallel.mesh import near_square_factors
+    from landhydrology.parallel.stepping import (
         make_fused_sharded_run,
         make_sharded_run,
     )
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.timestepping import SSPRK33
 
     all_devices = jax.devices()
-    # f32 everywhere: this is a throughput harness, and without
-    # jax_enable_x64 a requested f64 would silently canonicalize to f32 in
-    # array creation while explicit ShapeDtypeStructs (the Pallas kernel's
-    # outputs) would keep f64 — a guaranteed dtype mismatch on the fused path
+    # f32 everywhere: this is a throughput harness
     dtype = jnp.float32
 
     def run_on(n_dev):

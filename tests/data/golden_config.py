@@ -17,7 +17,7 @@ DT = 10.0
 def build_model_and_state(dtype):
     import jax.numpy as jnp
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         Dirichlet,
         FreeDrainage,
@@ -30,9 +30,9 @@ def build_model_and_state(dtype):
         VerticalFlux,
         initialize_states,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         k_solid,
         ksat_frozen,
         ksat_unfrozen,
@@ -116,7 +116,7 @@ def build_land_model_and_state(dtype):
     pond + kinematic-wave routing over a terrain hill."""
     import jax.numpy as jnp
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         PrescribedAtmosForcing,
         SoilColumnBC,
@@ -127,16 +127,16 @@ def build_land_model_and_state(dtype):
         SoilParams,
         VerticalFlux,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.land import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.land import (
         KinematicWaveRouting,
         LandModel,
         PulsePrecipitation,
         SurfaceWaterModel,
         initialize_states as land_init,
     )
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
@@ -207,7 +207,7 @@ def build_freeze_model_and_state(dtype):
     freezing point, rate-based phase change (tau resolves a few steps)."""
     import jax.numpy as jnp
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         Dirichlet,
         SoilColumnBC,
@@ -219,10 +219,10 @@ def build_freeze_model_and_state(dtype):
         VerticalFlux,
         initialize_states,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.freeze_thaw import FreezeThaw
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.freeze_thaw import FreezeThaw
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
@@ -276,7 +276,7 @@ def build_forced_model_state_and_rows(dtype):
     scalar and a per-column field."""
     import jax.numpy as jnp
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         PrescribedAtmosForcing,
         SoilColumnBC,
@@ -288,9 +288,9 @@ def build_forced_model_state_and_rows(dtype):
         VerticalFlux,
         initialize_states,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )

@@ -33,9 +33,9 @@ from tests.data.golden_config import (
     build_model_and_state,
 )
 
-from landhydrology_tpu.models.soil.rhs import make_rhs
-from landhydrology_tpu.domains import make_function_space
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.models.soil.rhs import make_rhs
+from landhydrology.domains import make_function_space
+from landhydrology.timestepping import SSPRK33
 
 
 def _save(name, Y, t):
@@ -83,7 +83,7 @@ def main():
     _save("golden_freeze_f64.npz", Yf, t)
 
     # 4. forced run (time-varying MOST atmosphere from a forcing table)
-    from landhydrology_tpu.runtime import make_forced_segment_run
+    from landhydrology.runtime import make_forced_segment_run
 
     mo, Yo, Yao, rows, dt_o = build_forced_model_state_and_rows(jnp.float64)
     seg = make_forced_segment_run(
@@ -98,7 +98,7 @@ def main():
     # the stage trajectory, not the same numbers (VERDICT r4 item 7)
     import dataclasses
 
-    from landhydrology_tpu.models.soil.lagged import wrap_stepper_for_soil
+    from landhydrology.models.soil.lagged import wrap_stepper_for_soil
 
     model5, Y5, Ya5, dt5 = build_model_and_state(jnp.float64)
     model5 = dataclasses.replace(model5, coefficient_update="step")
@@ -113,10 +113,10 @@ def main():
 
     # 6. implicit TR-BDF2 (Thomas backend) at dt far beyond the explicit
     # CFL — freezes the Newton/tridiagonal numerics (clamp, boundary
-    # boosts, elimination order); the PCR backend and the fused kernel are
-    # regression-tested against this same file at solver-appropriate
+    # boosts, elimination order); the PCR backend and the segment runner
+    # are regression-tested against this same file at solver-appropriate
     # tolerances
-    from landhydrology_tpu.imex import TRBDF2Soil
+    from landhydrology.imex import TRBDF2Soil
 
     model6, Y6, Ya6, _ = build_model_and_state(jnp.float64)
     grid6 = make_function_space(model6.domain, jnp.float64)

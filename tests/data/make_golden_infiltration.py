@@ -21,7 +21,7 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     FreeDrainage,
@@ -34,8 +34,8 @@ from landhydrology_tpu import (
     SoilParams,
     initialize_states,
 )
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.timestepping import SSPRK33
 
 
 def main():

@@ -20,7 +20,7 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 sys.path.insert(0, os.environ["LH_REPO"])
 
-from landhydrology_tpu.parallel import distributed
+from landhydrology.parallel import distributed
 
 distributed.initialize(
     coordinator_address=os.environ["LH_COORD"],
@@ -33,17 +33,17 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column, SoilColumnBC, SoilComponentBC, SoilEnergyModel,
     SoilHydrologyModel, SoilModel, SoilParams, VerticalFlux,
 )
-from landhydrology_tpu.constants import default_earth_param_set as ps
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.constants import default_earth_param_set as ps
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.models.soil.heat import (
     volumetric_heat_capacity, volumetric_internal_energy)
-from landhydrology_tpu.parallel import make_column_mesh
-from landhydrology_tpu.parallel.stepping import make_sharded_step
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.parallel import make_column_mesh
+from landhydrology.parallel.stepping import make_sharded_step
+from landhydrology.timestepping import SSPRK33
 
 NZ, NCOL = 8, 16
 model = SoilModel(
@@ -80,7 +80,7 @@ def put(x):
         sharding, np.asarray(x)[:, my_cols], global_shape=(NZ, NCOL))
 
 Y = jax.tree_util.tree_map(put, Y_global)
-from landhydrology_tpu.domains import make_function_space
+from landhydrology.domains import make_function_space
 grid = make_function_space(model.domain, jnp.float64)
 Ya = {"zc": jax.device_put(grid.zc, NamedSharding(mesh, P())), "soil": {}}
 
@@ -138,7 +138,7 @@ def test_two_process_cluster(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         SoilColumnBC,
         SoilComponentBC,
@@ -148,15 +148,15 @@ def test_two_process_cluster(tmp_path):
         SoilParams,
         VerticalFlux,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.domains import make_function_space
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
-    from landhydrology_tpu.models.soil.rhs import make_rhs
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.models.soil.rhs import make_rhs
+    from landhydrology.timestepping import SSPRK33
 
     NZ, NCOL = 8, 16
     model = SoilModel(

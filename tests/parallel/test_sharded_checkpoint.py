@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu.checkpoint import CheckpointManager
-from landhydrology_tpu.parallel import make_column_mesh, shard_state
+from landhydrology.checkpoint import CheckpointManager
+from landhydrology.parallel import make_column_mesh, shard_state
 
 pytestmark = pytest.mark.multihost
 
@@ -86,7 +86,7 @@ def test_sharded_restore_casts_dtype(tmp_path):
 def test_sharded_roundtrip_through_stepping(tmp_path):
     """Save mid-run on the mesh, restore, continue: identical to an
     uninterrupted sharded run (bitwise resume on a mesh)."""
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         SoilColumnBC,
         SoilComponentBC,
@@ -97,14 +97,14 @@ def test_sharded_roundtrip_through_stepping(tmp_path):
         VerticalFlux,
         initialize_states,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
-    from landhydrology_tpu.parallel import make_sharded_step
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.parallel import make_sharded_step
+    from landhydrology.timestepping import SSPRK33
 
     model = SoilModel(
         domain=Column(zlim=(-1.0, 0.0), nelements=NZ, batch_shape=(NX, NY)),

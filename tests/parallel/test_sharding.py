@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     PrescribedTemperatureModel,
     SoilColumnBC,
@@ -21,21 +21,21 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.constants import default_earth_param_set as param_set
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.constants import default_earth_param_set as param_set
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.models.soil.heat import (
     volumetric_heat_capacity,
     volumetric_internal_energy,
 )
-from landhydrology_tpu.models.soil.model import LateralSurfaceCoupling
-from landhydrology_tpu.parallel import (
+from landhydrology.models.soil.model import LateralSurfaceCoupling
+from landhydrology.parallel import (
     halo_exchanged_laplacian,
     make_column_mesh,
     make_sharded_step,
     shard_state,
 )
-from landhydrology_tpu.parallel.stepping import make_sharded_run
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.parallel.stepping import make_sharded_run
+from landhydrology.timestepping import SSPRK33
 
 pytestmark = pytest.mark.multihost
 
@@ -171,8 +171,8 @@ def test_simulation_with_sharded_state():
             "rho_e_int": jnp.full((NZ, 64), -1e6),
         }
 
-    from landhydrology_tpu import Simulation, initialize_states
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology import Simulation, initialize_states
+    from landhydrology.timestepping import SSPRK33
 
     Y, Ya = initialize_states(model, ic, 0.0)
     sim_ref = Simulation(
@@ -234,7 +234,7 @@ def test_shard_map_streams_per_column_arrays():
 def test_column_sharding_helper():
     """column_sharding builds the canonical (replicated-vertical, sharded-
     batch) NamedSharding used for explicit device_put placement."""
-    from landhydrology_tpu.parallel import column_sharding
+    from landhydrology.parallel import column_sharding
 
     mesh = make_column_mesh(shape=(4, 2))
     sh = column_sharding(mesh)
@@ -250,7 +250,7 @@ def test_variable_depth_sharded_matches_single_device(mode):
     """Variable-depth batches shard like any other heterogeneous data:
     per-column dz streams into the per-shard program (shard_map) or rides
     the closed-over constants (pjit); both match single-device exactly."""
-    from landhydrology_tpu import VariableDepthColumn
+    from landhydrology import VariableDepthColumn
 
     rng = np.random.default_rng(7)
     depths = rng.uniform(0.6, 2.5, (NX, NY))
@@ -281,13 +281,13 @@ def test_variable_depth_sharded_matches_single_device(mode):
         )
 
 
-# ---- fused Pallas kernel inside shard_map (VERDICT r1 item 1) ----
+# ---- the segment runner inside shard_map ----
 
 
 def _fused_plain_reference(model, Y, dt, steps_per_call, n_calls):
-    """Single-device plain fused-kernel run on the flattened column batch —
-    the numerics the sharded fused path must reproduce exactly."""
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
+    """Single-device segment run on the flattened column batch — the
+    numerics the sharded segment path must reproduce exactly."""
+    from landhydrology.segment import make_segment_run
 
     batch = model.domain.batch_shape
     ncol = int(np.prod(batch))
@@ -296,9 +296,8 @@ def _fused_plain_reference(model, Y, dt, steps_per_call, n_calls):
         domain=dataclasses.replace(model.domain, batch_shape=(ncol,)),
         lateral_coupling=None,
     )
-    run = make_fused_column_run(
+    run = make_segment_run(
         flat_model, SSPRK33(), dt=dt, steps_per_call=steps_per_call,
-        tile_cols=ncol, interpret=True,
     )
     Yf = {"soil": {k: v.reshape(NZ, ncol) for k, v in Y["soil"].items()}}
     t = jnp.asarray(0.0, dtype=jnp.float64)
@@ -309,9 +308,10 @@ def _fused_plain_reference(model, Y, dt, steps_per_call, n_calls):
 
 
 def test_fused_sharded_matches_plain_fused():
-    """Lateral-free: the fused kernel inside shard_map on 8 devices is
-    numerically identical to the plain single-device fused kernel."""
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    """Lateral-free: the segment runner inside shard_map on 8 devices is
+    numerically identical to the single-device segment on the flattened
+    batch."""
+    from landhydrology.parallel import make_fused_sharded_run
 
     model = _model(None)
     Y, Ya = initialize_states(model, _ic, 0.0)
@@ -321,7 +321,6 @@ def test_fused_sharded_matches_plain_fused():
     Ys, Yas = shard_state(Y, mesh), shard_state(Ya, mesh)
     run = make_fused_sharded_run(
         model, mesh, SSPRK33(), dt=10.0, steps_per_call=4, n_calls=2,
-        tile_cols=512, interpret=True,
     )
     YN, tf = run(Ys, Yas, jnp.asarray(0.0))
     assert float(tf) == pytest.approx(80.0)
@@ -334,8 +333,8 @@ def test_fused_sharded_matches_plain_fused():
 
 def test_fused_sharded_heterogeneous_params():
     """Per-column vanGenuchten/porosity arrays stream into the per-shard
-    fused kernel and match the plain fused kernel on flattened params."""
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    segment and match the single-device segment on flattened params."""
+    from landhydrology.parallel import make_fused_sharded_run
 
     rng = np.random.default_rng(11)
     model = _model(None)
@@ -380,7 +379,6 @@ def test_fused_sharded_heterogeneous_params():
     Ys, Yas = shard_state(Y, mesh), shard_state(Ya, mesh)
     run = make_fused_sharded_run(
         model, mesh, SSPRK33(), dt=10.0, steps_per_call=4, n_calls=2,
-        interpret=True,
     )
     YN, _ = run(Ys, Yas, jnp.asarray(0.0))
     for k in Y["soil"]:
@@ -391,18 +389,17 @@ def test_fused_sharded_heterogeneous_params():
 
 
 def test_fused_sharded_lateral_split_device_invariant():
-    """With lateral coupling the fused path runs a Lie split (fused vertical
+    """With lateral coupling the segment path runs a Lie split (vertical
     segment + halo-exchanged lateral update): 8-device result == 1-device
     result of the same scheme, water is conserved, and the lateral bump
     smooths."""
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    from landhydrology.parallel import make_fused_sharded_run
 
     lateral = LateralSurfaceCoupling(conductance=1e-4, dx=1.0)
     model = _model(lateral)
     Y, Ya = initialize_states(model, _ic, 0.0)
 
-    kw = dict(stepper=SSPRK33(), dt=10.0, steps_per_call=4, n_calls=5,
-              interpret=True)
+    kw = dict(stepper=SSPRK33(), dt=10.0, steps_per_call=4, n_calls=5)
     run1 = make_fused_sharded_run(
         model, make_column_mesh(shape=(1, 1), devices=jax.devices()[:1]), **kw
     )
@@ -426,14 +423,14 @@ def test_fused_sharded_lateral_split_device_invariant():
 
 def test_fused_sharded_lateral_cfl_guard():
     """Construction rejects a split window beyond the lateral CFL."""
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    from landhydrology.parallel import make_fused_sharded_run
 
     lateral = LateralSurfaceCoupling(conductance=1.0, dx=0.1)
     model = _model(lateral)
     mesh = make_column_mesh(shape=(4, 2))
     with pytest.raises(ValueError, match="lateral"):
         make_fused_sharded_run(
-            model, mesh, SSPRK33(), dt=10.0, steps_per_call=48, interpret=True
+            model, mesh, SSPRK33(), dt=10.0, steps_per_call=48,
         )
 
 
@@ -442,7 +439,7 @@ def test_sharded_freeze_thaw_projection_applies():
     projection (ADVICE r2 medium): an 8-device sharded step of a
     supercooled batch matches the explicitly wrapped single-device step and
     actually freezes ice (the unwrapped step would leave theta_i == 0)."""
-    from landhydrology_tpu.models.soil.freeze_thaw import (
+    from landhydrology.models.soil.freeze_thaw import (
         EquilibriumFreezeThaw,
         wrap_stepper_with_projection,
     )
@@ -466,8 +463,8 @@ def test_sharded_freeze_thaw_projection_applies():
     Y, Ya = initialize_states(model, ic, 0.0)
 
     # explicit single-device reference with the projection wrap
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.models.soil.rhs import make_rhs
+    from landhydrology.domains import make_function_space
+    from landhydrology.models.soil.rhs import make_rhs
 
     grid = make_function_space(model.domain, model.float_dtype)
     rhs = make_rhs(model, grid)
@@ -488,13 +485,13 @@ def test_sharded_freeze_thaw_projection_applies():
 
 
 # ---------------------------------------------------------------------------
-# LandModel through the fused sharded path (VERDICT r2 item 3)
+# LandModel through the sharded segment path
 # ---------------------------------------------------------------------------
 
 
 def _land_model(runoff=None):
-    from landhydrology_tpu import PrescribedAtmosForcing
-    from landhydrology_tpu.models.land import LandModel, SurfaceWaterModel
+    from landhydrology import PrescribedAtmosForcing
+    from landhydrology.models.land import LandModel, SurfaceWaterModel
 
     soil = dataclasses.replace(
         _model(None),
@@ -520,21 +517,21 @@ def _land_model(runoff=None):
 
 
 def _land_states(land, h_s0=0.0):
-    from landhydrology_tpu.models.land import initialize_states as land_init
+    from landhydrology.models.land import initialize_states as land_init
 
     return land_init(land, _ic, 0.0, h_s0=h_s0)
 
 
 def test_fused_sharded_land_matches_plain_fused():
-    """Rain + pond + MOST + coupled energy through the fused kernel inside
-    shard_map on 8 devices == the plain single-device fused kernel."""
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    """Rain + pond + MOST + coupled energy through the segment runner
+    inside shard_map on 8 devices == the single-device segment."""
+    from landhydrology.segment import make_segment_run
+    from landhydrology.parallel import make_fused_sharded_run
 
     land = _land_model()
     Y, Ya = _land_states(land, h_s0=5e-4)  # standing pond: exchange active
 
-    # plain fused reference on the flattened batch
+    # single-device segment reference on the flattened batch
     ncol = NX * NY
     flat_land = dataclasses.replace(
         land,
@@ -543,9 +540,8 @@ def test_fused_sharded_land_matches_plain_fused():
             domain=dataclasses.replace(land.soil.domain, batch_shape=(ncol,)),
         ),
     )
-    run_p = make_fused_column_run(
-        flat_land, SSPRK33(), dt=10.0, steps_per_call=4, tile_cols=ncol,
-        interpret=True,
+    run_p = make_segment_run(
+        flat_land, SSPRK33(), dt=10.0, steps_per_call=4,
     )
     Yf = {
         "soil": {k: v.reshape(NZ, ncol) for k, v in Y["soil"].items()},
@@ -564,7 +560,6 @@ def test_fused_sharded_land_matches_plain_fused():
     Ys, Yas = shard_state(Y, mesh), shard_state(Ya, mesh)
     run = make_fused_sharded_run(
         land, mesh, SSPRK33(), dt=10.0, steps_per_call=4, n_calls=2,
-        interpret=True,
     )
     YN, tf = run(Ys, Yas, jnp.asarray(0.0))
     assert float(tf) == pytest.approx(80.0)
@@ -584,8 +579,8 @@ def test_fused_sharded_land_matches_plain_fused():
 def test_fused_sharded_land_routing_device_invariant():
     """Diffusive pond routing joins the Lie split: 8-device == 1-device of
     the same scheme, and the pond bump spreads."""
-    from landhydrology_tpu.models.land import RunoffRouting
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    from landhydrology.models.land import RunoffRouting
+    from landhydrology.parallel import make_fused_sharded_run
 
     land = _land_model(runoff=RunoffRouting(conductance=5e-3, dx=1.0))
     # laterally varying initial pond so routing has something to move
@@ -593,8 +588,7 @@ def test_fused_sharded_land_routing_device_invariant():
     h_s0 = jnp.asarray(np.broadcast_to(bump, (NX, NY)))
     Y, Ya = _land_states(land, h_s0=h_s0)
 
-    kw = dict(stepper=SSPRK33(), dt=10.0, steps_per_call=4, n_calls=5,
-              interpret=True)
+    kw = dict(stepper=SSPRK33(), dt=10.0, steps_per_call=4, n_calls=5)
     run1 = make_fused_sharded_run(
         land, make_column_mesh(shape=(1, 1), devices=jax.devices()[:1]), **kw
     )
@@ -620,13 +614,13 @@ def test_fused_sharded_land_routing_device_invariant():
 
 
 def test_fused_sharded_land_kinematic_device_invariant_and_conserves():
-    """Manning kinematic-wave routing joins the fused-sharded Lie split
+    """Manning kinematic-wave routing joins the sharded segment Lie split
     (upwinded face fluxes with one-cell halo exchange, elevation streamed
     as a sharded argument): 8-device == 1-device of the same scheme, face
     fluxes telescope so pond + soil water closes exactly, and water flows
     off the terrain hill."""
-    from landhydrology_tpu.models.land import KinematicWaveRouting
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    from landhydrology.models.land import KinematicWaveRouting
+    from landhydrology.parallel import make_fused_sharded_run
 
     x = np.arange(NX)[:, None] - (NX - 1) / 2.0
     y = np.arange(NY)[None, :] - (NY - 1) / 2.0
@@ -654,8 +648,7 @@ def test_fused_sharded_land_kinematic_device_invariant_and_conserves():
 
     # kinematic CFL at h~5e-3, |s|~0.1: c ~ (5/3) h^(2/3) sqrt(s)/n ~ 0.3
     # m/s -> window steps_per_call*dt = 2 s stays well under dx/c ~ 3 s
-    kw = dict(stepper=SSPRK33(), dt=0.5, steps_per_call=4, n_calls=5,
-              interpret=True)
+    kw = dict(stepper=SSPRK33(), dt=0.5, steps_per_call=4, n_calls=5)
     run1 = make_fused_sharded_run(
         land, make_column_mesh(shape=(1, 1), devices=jax.devices()[:1]), **kw
     )
@@ -682,7 +675,7 @@ def test_fused_sharded_land_kinematic_device_invariant_and_conserves():
     assert hf[0, 0] > 5e-3
     # conservation across routing + infiltration + rain: total water change
     # equals integrated rain minus nothing else (zero-flux bottom, no MOST)
-    from landhydrology_tpu.domains import make_function_space
+    from landhydrology.domains import make_function_space
 
     grid = make_function_space(land.soil.domain, land.float_dtype)
     dz = float(grid.dz)
@@ -697,13 +690,12 @@ def test_fused_sharded_land_kinematic_device_invariant_and_conserves():
 
 
 def test_fused_sharded_variable_depth_matches_plain_fused():
-    """VariableDepthColumn through the fused sharded path (VERDICT r2
-    item 6): per-column dz streams as sharded data into the per-shard
-    kernels; 8-device result == the plain fused kernel on the flattened
-    variable-depth batch."""
-    from landhydrology_tpu import VariableDepthColumn
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    """VariableDepthColumn through the sharded segment path: per-column dz
+    streams as sharded data into the per-shard segments; 8-device result ==
+    the single-device segment on the flattened variable-depth batch."""
+    from landhydrology import VariableDepthColumn
+    from landhydrology.segment import make_segment_run
+    from landhydrology.parallel import make_fused_sharded_run
 
     rng = np.random.default_rng(7)
     depths = rng.uniform(0.6, 2.5, (NX, NY))
@@ -715,7 +707,7 @@ def test_fused_sharded_variable_depth_matches_plain_fused():
     )
     Y, Ya = initialize_states(model, _ic, 0.0)
 
-    # plain fused reference on the flattened variable-depth batch
+    # single-device segment reference on the flattened variable-depth batch
     ncol = NX * NY
     flat_model = dataclasses.replace(
         model,
@@ -725,9 +717,8 @@ def test_fused_sharded_variable_depth_matches_plain_fused():
             batch_shape=(ncol,),
         ),
     )
-    run_p = make_fused_column_run(
-        flat_model, SSPRK33(), dt=5.0, steps_per_call=4, tile_cols=ncol,
-        interpret=True,
+    run_p = make_segment_run(
+        flat_model, SSPRK33(), dt=5.0, steps_per_call=4,
     )
     Yf = {"soil": {k: v.reshape(NZ, ncol) for k, v in Y["soil"].items()}}
     t = jnp.asarray(0.0, dtype=jnp.float64)
@@ -740,7 +731,6 @@ def test_fused_sharded_variable_depth_matches_plain_fused():
     Ys, Yas = shard_state(Y, mesh), shard_state(Ya, mesh)
     run = make_fused_sharded_run(
         model, mesh, SSPRK33(), dt=5.0, steps_per_call=4, n_calls=2,
-        interpret=True,
     )
     YN, tf = run(Ys, Yas, jnp.asarray(0.0))
     assert float(tf) == pytest.approx(40.0)
@@ -753,14 +743,14 @@ def test_fused_sharded_variable_depth_matches_plain_fused():
 
 def test_fused_sharded_lateral_split_first_order_in_window():
     """Quantified accuracy model for the lateral Lie split (VERDICT r2
-    item 5): the fused sharded path freezes the lateral term for a segment
+    item 5): the sharded segment path freezes the lateral term for a segment
     window ``w = steps_per_call * dt``; its error against the *unsplit* XLA
     trajectory (lateral term in every RK stage) must shrink ~linearly as the
     window shrinks — measured first order, not assumed.  The documented rule
     (stepping.py / docs/performance.md): splitting error ~ O(w), so pick
     ``w`` a factor F below the lateral stability limit ``dx^2 dz / (4c)``
     to get an O(1/F) relative-error reduction."""
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    from landhydrology.parallel import make_fused_sharded_run
 
     # windows well inside the lateral stability limit dx^2 dz /(4c) ~ 417 s
     # (near the limit the split error grows superlinearly; the first-order
@@ -783,7 +773,7 @@ def test_fused_sharded_lateral_split_first_order_in_window():
     for spc in (2, 4, 8):
         run = make_fused_sharded_run(
             model, mesh, SSPRK33(), dt=dt, steps_per_call=spc,
-            n_calls=total_steps // spc, interpret=True,
+            n_calls=total_steps // spc,
         )
         Yf, _ = run(Y, Ya, jnp.asarray(0.0))
         errs[spc] = float(
@@ -807,10 +797,10 @@ def test_adaptive_trbdf2_sharded_matches_single_device():
     while_loop, the tridiagonal Newton solves, and the global error norm
     (an all-reduce under GSPMD) must give the single-device trajectory and
     the same accept/reject history on 8 devices."""
-    from landhydrology_tpu.adaptive import AdaptiveConfig, run_adaptive
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.imex import TRBDF2Soil
-    from landhydrology_tpu.models.soil.rhs import make_rhs
+    from landhydrology.adaptive import AdaptiveConfig, run_adaptive
+    from landhydrology.domains import make_function_space
+    from landhydrology.imex import TRBDF2Soil
+    from landhydrology.models.soil.rhs import make_rhs
 
     model = _model(None)
     Y, Ya = initialize_states(model, _ic, 0.0)
@@ -841,17 +831,16 @@ def test_adaptive_trbdf2_sharded_matches_single_device():
 def test_land_surface_update_step_device_invariant():
     """LandModel(surface_update='step') across the parallel engines: the
     pjit-sharded step (8 devices) matches the single-device frozen-exchange
-    loop, and the fused sharded kernel (which re-wraps the freeze with
-    tile-local models inside each shard's kernel) matches the plain fused
-    kernel — the frozen surface exchange must not depend on device count
-    or tiling."""
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.models.land import (
+    loop, and the sharded segment (which re-wraps the freeze with the
+    shard-local model) matches the single-device segment — the frozen
+    surface exchange must not depend on device count."""
+    from landhydrology.domains import make_function_space
+    from landhydrology.models.land import (
         make_rhs as make_land_rhs,
         wrap_stepper_for_land,
     )
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
-    from landhydrology_tpu.parallel import make_fused_sharded_run
+    from landhydrology.segment import make_segment_run
+    from landhydrology.parallel import make_fused_sharded_run
 
     land = dataclasses.replace(_land_model(), surface_update="step")
     Y, Ya = _land_states(land, h_s0=5e-4)
@@ -883,7 +872,7 @@ def test_land_surface_update_step_device_invariant():
         rtol=1e-12, atol=1e-18,
     )
 
-    # fused sharded (8 devices) == plain fused (1 device), both step-mode
+    # sharded segment (8 devices) == single-device segment, both step-mode
     ncol = NX * NY
     flat_land = dataclasses.replace(
         land,
@@ -892,9 +881,8 @@ def test_land_surface_update_step_device_invariant():
             domain=dataclasses.replace(land.soil.domain, batch_shape=(ncol,)),
         ),
     )
-    run_p = make_fused_column_run(
-        flat_land, SSPRK33(), dt=dt, steps_per_call=4, tile_cols=ncol,
-        interpret=True,
+    run_p = make_segment_run(
+        flat_land, SSPRK33(), dt=dt, steps_per_call=4,
     )
     Yf = {
         "soil": {k: v.reshape(NZ, ncol) for k, v in Y["soil"].items()},
@@ -906,7 +894,6 @@ def test_land_surface_update_step_device_invariant():
         tf = tf + 4 * dt
     runN = make_fused_sharded_run(
         land, mesh, SSPRK33(), dt=dt, steps_per_call=4, n_calls=n // 4,
-        interpret=True,
     )
     YN, _ = runN(Ys, Yas, jnp.asarray(0.0))
     for k in Y["soil"]:

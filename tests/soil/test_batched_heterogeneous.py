@@ -1,4 +1,4 @@
-"""Heterogeneous-batch tests — the TPU build's scale axis (SURVEY.md §2
+"""Heterogeneous-batch tests — the package's scale axis (SURVEY.md §2
 row 13, north-star config 4): per-column van Genuchten parameters and
 per-column mixed BC types must reproduce the equivalent homogeneous runs
 column by column."""
@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from landhydrology_tpu import (
+from landhydrology import (
     BatchedBC,
     BCKind,
     Column,
@@ -25,8 +25,8 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.timestepping import SSPRK33
 
 NZ = 30
 IC = 0.12

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Simulation,
     SoilColumnBC,
@@ -19,9 +19,9 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.constants import default_earth_param_set as param_set
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.constants import default_earth_param_set as param_set
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.models.soil.heat import (
     k_solid,
     ksat_frozen,
     ksat_unfrozen,
@@ -29,7 +29,7 @@ from landhydrology_tpu.models.soil.heat import (
     volumetric_heat_capacity,
     volumetric_internal_energy,
 )
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.timestepping import SSPRK33
 
 
 def _expected_theta(z, z_interface, nu=0.5, S_s=1e-3, alpha=2.6, n=2.0, m=0.5):

@@ -1,4 +1,4 @@
-"""Freeze-thaw phase-change tests (TPU-build extension; the reference's
+"""Freeze-thaw phase-change tests (an extension beyond the reference; the reference's
 theta_i tendency is hard-coded zero — right_hand_side.jl:359).
 
 Oracles: exact water-mass and energy conservation of the source pair,
@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     Simulation,
@@ -23,19 +23,19 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.constants import default_earth_param_set as ps
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.models.soil.freeze_thaw import (
+from landhydrology.constants import default_earth_param_set as ps
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.models.soil.freeze_thaw import (
     FreezeThaw,
     equilibrium_unfrozen_liquid,
     phase_change_sources,
 )
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.models.soil.heat import (
     temperature_from_rho_e_int,
     volumetric_heat_capacity,
     volumetric_internal_energy,
 )
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.timestepping import SSPRK33
 
 HM = vanGenuchten(n=2.0, alpha=2.6, Ksat=1e-6, theta_r=0.05)
 NU = 0.4
@@ -172,11 +172,11 @@ def test_stefan_front_matches_analytic():
     lambda from lam*exp(lam^2)*erf(lam) = Ste/sqrt(pi)."""
     import math
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Dirichlet as _Dirichlet,
         SoilEnergyModel as _SE,
     )
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.models.soil.heat import (
         k_dry,
         ksat_frozen,
         ksat_unfrozen,
@@ -277,7 +277,7 @@ def test_equilibrium_projection_conserves_and_partitions():
     theta_l = theta_l_max(T); warm icy cells melt completely."""
     import dataclasses
 
-    from landhydrology_tpu.models.soil.freeze_thaw import (
+    from landhydrology.models.soil.freeze_thaw import (
         EquilibriumFreezeThaw,
         equilibrium_phase_projection,
     )
@@ -335,8 +335,8 @@ def test_equilibrium_stefan_front_under_2pct_and_dt_independent():
     where the relaxation scheme needed tau tuning and sat at 2-8%."""
     import math
 
-    from landhydrology_tpu.models.soil.freeze_thaw import EquilibriumFreezeThaw
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.models.soil.freeze_thaw import EquilibriumFreezeThaw
+    from landhydrology.models.soil.heat import (
         k_dry,
         ksat_frozen,
         ksat_unfrozen,
@@ -437,19 +437,19 @@ def test_equilibrium_stefan_front_under_2pct_and_dt_independent():
         assert abs(a - b) / a < 5e-3, (a, b)
 
 
-def test_equilibrium_through_pallas_kernel_and_trbdf2():
-    """The projection composes with the fused Pallas kernel (wrapper model
-    rebinds to tile slices) and with the implicit steppers: all three
-    engines freeze a supercooled batch to the same equilibrium."""
+def test_equilibrium_through_segment_and_trbdf2():
+    """The projection composes with the segment runner (wrapper model
+    rebinds to the segment's model) and with the implicit steppers: all
+    three engines freeze a supercooled batch to the same equilibrium."""
     import dataclasses
 
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.imex import TRBDF2Soil
-    from landhydrology_tpu.models.soil.freeze_thaw import (
+    from landhydrology.domains import make_function_space
+    from landhydrology.imex import TRBDF2Soil
+    from landhydrology.models.soil.freeze_thaw import (
         EquilibriumFreezeThaw,
         wrap_stepper_with_projection,
     )
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
+    from landhydrology.segment import make_segment_run
 
     ncol = 8
     model = dataclasses.replace(
@@ -482,18 +482,17 @@ def test_equilibrium_through_pallas_kernel_and_trbdf2():
     )
     sim_x.run()
 
-    # fused Pallas kernel (interpret on CPU)
+    # segment runner
     stepper = wrap_stepper_with_projection(SSPRK33(), model)
-    fused = make_fused_column_run(
-        model, stepper, dt=dt, steps_per_call=n_steps, tile_cols=ncol,
-        interpret=True,
+    segment = make_segment_run(
+        model, stepper, dt=dt, steps_per_call=n_steps,
     )
-    Yp = fused(Y, jnp.asarray(0.0))
+    Yp = segment(Y, jnp.asarray(0.0))
 
     for k in Y["soil"]:
         np.testing.assert_allclose(
             np.asarray(Yp["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
-            rtol=1e-10, atol=1e-18, err_msg=f"pallas:{k}",
+            rtol=1e-10, atol=1e-18, err_msg=f"segment:{k}",
         )
 
     # TR-BDF2 implicit path (Simulation auto-wraps the projection)
@@ -523,11 +522,11 @@ def test_freeze_thaw_requires_dynamic_components():
     with a raw KeyError at the first projection (ADVICE r2)."""
     import dataclasses
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         PrescribedHydrologyModel,
         PrescribedTemperatureModel,
     )
-    from landhydrology_tpu.models.soil.freeze_thaw import EquilibriumFreezeThaw
+    from landhydrology.models.soil.freeze_thaw import EquilibriumFreezeThaw
 
     base = _freeze_model(None)
     with pytest.raises(TypeError, match="SoilEnergyModel"):

@@ -6,7 +6,7 @@ theta_i vs eps."""
 import jax.numpy as jnp
 import numpy as np
 
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.models.soil.heat import (
     k_dry,
     k_solid,
     kersten_number,
@@ -20,7 +20,7 @@ from landhydrology_tpu.models.soil.heat import (
     volumetric_internal_energy,
     volumetric_internal_energy_liq,
 )
-from landhydrology_tpu.models.soil.params import SoilParams
+from landhydrology.models.soil.params import SoilParams
 
 
 def test_temperature_from_rho_e_int(param_set):

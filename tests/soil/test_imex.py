@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     PrescribedTemperatureModel,
     Simulation,
@@ -18,9 +18,9 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.domains import make_function_space
-from landhydrology_tpu.imex import BackwardEulerRichards
-from landhydrology_tpu.models.soil import vanGenuchten
+from landhydrology.domains import make_function_space
+from landhydrology.imex import BackwardEulerRichards
+from landhydrology.models.soil import vanGenuchten
 
 
 def _expected_equilibrium(z, z_interface, nu, S_s=1e-3, alpha=2.6, n=2.0, m=0.5):
@@ -81,8 +81,8 @@ def test_implicit_richards_large_dt_equilibrium():
 def test_implicit_matches_explicit_short_horizon():
     """Implicit dt=2 vs explicit dt=0.25 on stiff sand infiltration over a
     short horizon: profiles agree to solver tolerance."""
-    from landhydrology_tpu import Dirichlet, FreeDrainage
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology import Dirichlet, FreeDrainage
+    from landhydrology.timestepping import SSPRK33
 
     hm = vanGenuchten(n=3.96, alpha=2.7, Ksat=34.0 / 3600.0 / 100.0, theta_r=0.075)
     model = SoilModel(
@@ -131,10 +131,10 @@ def test_backward_euler_soil_coupled():
     """Fully implicit coupled step (water Newton + linear heat tridiag) at
     dt far beyond both CFL limits relaxes toward the same coupled
     equilibrium as the explicit path (shortened horizon)."""
-    from landhydrology_tpu import SoilEnergyModel
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.imex import BackwardEulerSoil
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology import SoilEnergyModel
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.imex import BackwardEulerSoil
+    from landhydrology.models.soil.heat import (
         k_solid,
         ksat_frozen,
         ksat_unfrozen,
@@ -142,7 +142,7 @@ def test_backward_euler_soil_coupled():
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.timestepping import SSPRK33
 
     nu = 0.5
     ks = k_solid(0.0, 0.92, 7.7, 2.5, 0.25)
@@ -221,14 +221,14 @@ def test_backward_euler_soil_coupled():
 def test_implicit_with_temperature_dependent_viscosity():
     """Regression: BackwardEulerSoil with TemperatureDependentViscosity and
     a dynamic energy model must diagnose T from rho_e_int (was KeyError)."""
-    from landhydrology_tpu import SoilEnergyModel
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.imex import BackwardEulerSoil
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology import SoilEnergyModel
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.imex import BackwardEulerSoil
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
-    from landhydrology_tpu.models.soil.water import TemperatureDependentViscosity
+    from landhydrology.models.soil.water import TemperatureDependentViscosity
 
     model = SoilModel(
         domain=Column(zlim=(-1.0, 0.0), nelements=12),
@@ -280,7 +280,7 @@ def _stiff_coupled_model():
     in the S_s (compressibility) regime with diffusivity K/S_s, ~100x
     stiffer than unsaturated Richards and smooth (no saturation-interface
     kink), so formal temporal order is observable."""
-    from landhydrology_tpu import SoilEnergyModel
+    from landhydrology import SoilEnergyModel
 
     return SoilModel(
         domain=Column(zlim=(-2.0, 0.0), nelements=20),
@@ -303,8 +303,8 @@ def _stiff_coupled_model():
 
 
 def _stiff_coupled_state(model):
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
@@ -346,9 +346,9 @@ def test_trbdf2_second_order_at_30x_cfl():
     order -> 2 with the coarsest dt ~30x the explicit CFL limit, and the
     same study shows backward Euler at order 1 (the improvement TR-BDF2
     buys)."""
-    from landhydrology_tpu.diagnostics import explicit_dt_limit
-    from landhydrology_tpu.imex import BackwardEulerSoil, TRBDF2Soil
-    from landhydrology_tpu.models.soil.rhs import make_rhs
+    from landhydrology.diagnostics import explicit_dt_limit
+    from landhydrology.imex import BackwardEulerSoil, TRBDF2Soil
+    from landhydrology.models.soil.rhs import make_rhs
 
     model = _stiff_coupled_model()
     Y, Ya = _stiff_coupled_state(model)
@@ -402,8 +402,8 @@ def test_trbdf2_richards_only_matches_be_limit():
     """TR-BDF2 on a water-only (PrescribedTemperature) model: stable at
     large dt, conserves mass, and converges to the same state as backward
     Euler as dt -> 0."""
-    from landhydrology_tpu.imex import BackwardEulerRichards, TRBDF2Soil
-    from landhydrology_tpu.models.soil.rhs import make_rhs
+    from landhydrology.imex import BackwardEulerRichards, TRBDF2Soil
+    from landhydrology.models.soil.rhs import make_rhs
 
     nu = 0.43
     model = SoilModel(
@@ -447,10 +447,10 @@ def test_adaptive_uses_trbdf2_order():
     """run_adaptive derives its PI exponents from the stepper's order and
     integrates the stiff column with TR-BDF2 at steps far beyond the
     explicit CFL."""
-    from landhydrology_tpu.adaptive import AdaptiveConfig, run_adaptive
-    from landhydrology_tpu.diagnostics import explicit_dt_limit
-    from landhydrology_tpu.imex import TRBDF2Soil
-    from landhydrology_tpu.models.soil.rhs import make_rhs
+    from landhydrology.adaptive import AdaptiveConfig, run_adaptive
+    from landhydrology.diagnostics import explicit_dt_limit
+    from landhydrology.imex import TRBDF2Soil
+    from landhydrology.models.soil.rhs import make_rhs
 
     model = _stiff_coupled_model()
     Y, Ya = _stiff_coupled_state(model)
@@ -485,12 +485,12 @@ def test_trbdf2_stages_counts_rhs_evaluations():
     1 up-front f(u^n) + 2 stages x iters sweeps x active components."""
     import dataclasses
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         PrescribedHydrologyModel,
         PrescribedTemperatureModel,
     )
-    from landhydrology_tpu.imex import TRBDF2Soil
-    from landhydrology_tpu.models.soil.freeze_thaw import FreezeThaw
+    from landhydrology.imex import TRBDF2Soil
+    from landhydrology.models.soil.freeze_thaw import FreezeThaw
 
     model = _stiff_coupled_model()
     grid = make_function_space(model.domain, model.float_dtype)

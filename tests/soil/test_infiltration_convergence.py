@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     FreeDrainage,
@@ -25,8 +25,8 @@ from landhydrology_tpu import (
     SoilParams,
     initialize_states,
 )
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.timestepping import SSPRK33
 
 GOLDEN = os.path.join(
     os.path.dirname(__file__), "..", "data", "golden_infiltration_fine.npz"

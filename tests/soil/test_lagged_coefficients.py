@@ -1,7 +1,7 @@
 """Lagged-coefficient stepping (``SoilModel(coefficient_update="step")``):
 validation, stage-level equivalence of the coefficient-parametrized rhs,
 measured first-order accuracy of the splitting, exact conservation, and
-engine agreement (XLA scan / fused Pallas / pjit) — the step-level policy
+engine agreement (XLA scan / segment runner / pjit) — the step-level policy
 machinery mirroring ``LandModel(surface_update="step")``."""
 
 import dataclasses
@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     FreeDrainage,
@@ -27,19 +27,20 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.constants import default_earth_param_set as ps
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.constants import default_earth_param_set as ps
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.models.soil.heat import (
     volumetric_heat_capacity,
     volumetric_internal_energy,
 )
-from landhydrology_tpu.models.soil.lagged import (
+from landhydrology.models.soil.lagged import (
     LaggedCoefficientStepper,
     make_coefficient_fns,
     wrap_stepper_for_soil,
 )
-from landhydrology_tpu.models.soil.rhs import make_rhs
-from landhydrology_tpu.timestepping import SSPRK33, ForwardEuler
+from landhydrology.models.soil.rhs import make_rhs
+from landhydrology.segment import make_segment_run
+from landhydrology.timestepping import SSPRK33, ForwardEuler
 
 NZ, NCOL = 16, 8
 
@@ -83,7 +84,7 @@ def _ic(z, m):
 
 
 def test_validation_and_config_roundtrip():
-    from landhydrology_tpu.config import from_config, to_config
+    from landhydrology.config import from_config, to_config
 
     with pytest.raises(ValueError, match="coefficient_update"):
         _coupled(coefficient_update="sometimes")
@@ -253,7 +254,7 @@ def test_lagged_forward_euler_matches_stage():
 
 
 def test_lagged_engines_agree():
-    """XLA scan, fused Pallas kernel, and pjit produce the same lagged
+    """XLA scan, the segment runner, and pjit produce the same lagged
     trajectory (the policy is enforced inside every engine, not silently
     dropped by any of them) — and it differs from the stage trajectory."""
     model = _coupled(coefficient_update="step")
@@ -261,12 +262,12 @@ def test_lagged_engines_agree():
     kw = dict(Y_init=Y0, Ya_init=Ya, dt=2.0, tspan=(0.0, 96.0))
     sim_x = Simulation(model, SSPRK33(), **kw)
     sim_x.run()
-    sim_p = Simulation(model, SSPRK33(), engine="pallas", steps_per_call=12,
-                       tile_cols=NCOL, **kw)
-    sim_p.run()
+    Yp = make_segment_run(
+        model, SSPRK33(), dt=kw["dt"], steps_per_call=48
+    )(kw["Y_init"], 0.0)
 
-    from landhydrology_tpu.parallel import make_column_mesh
-    from landhydrology_tpu.parallel.stepping import make_sharded_run
+    from landhydrology.parallel import make_column_mesh
+    from landhydrology.parallel.stepping import make_sharded_run
 
     ndev = min(len(jax.devices()), 8)
     mesh = make_column_mesh(shape=(ndev,), axis_names=("columns",))
@@ -279,8 +280,8 @@ def test_lagged_engines_agree():
 
     for k in Y0["soil"]:
         np.testing.assert_allclose(
-            np.asarray(sim_p.Y["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
-            rtol=1e-12, atol=1e-18, err_msg=f"pallas/{k}")
+            np.asarray(Yp["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
+            rtol=1e-12, atol=1e-18, err_msg=f"segment/{k}")
         np.testing.assert_allclose(
             np.asarray(Yj["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
             rtol=1e-12, atol=1e-18, err_msg=f"pjit/{k}")
@@ -291,10 +292,10 @@ def test_lagged_engines_agree():
 
 def test_lagged_composes_with_land():
     """LandModel with soil.coefficient_update='step': the land policy
-    stepper freezes the soil coefficients too, identically on the XLA and
-    fused engines."""
-    from landhydrology_tpu import PrescribedAtmosForcing
-    from landhydrology_tpu.models.land import (
+    stepper freezes the soil coefficients too, identically in Simulation
+    and the segment runner."""
+    from landhydrology import PrescribedAtmosForcing
+    from landhydrology.models.land import (
         LandModel,
         SurfaceWaterModel,
         initialize_states as land_init,
@@ -323,9 +324,9 @@ def test_lagged_composes_with_land():
     kw = dict(Y_init=Y0, Ya_init=Ya, dt=2.0, tspan=(0.0, 48.0))
     sim_x = Simulation(land, SSPRK33(), **kw)
     sim_x.run()
-    sim_p = Simulation(land, SSPRK33(), engine="pallas", steps_per_call=12,
-                       tile_cols=NCOL, **kw)
-    sim_p.run()
+    Yp = make_segment_run(
+        land, SSPRK33(), dt=kw["dt"], steps_per_call=24
+    )(kw["Y_init"], 0.0)
 
     land_stage = dataclasses.replace(
         land, soil=dataclasses.replace(soil, coefficient_update="stage")
@@ -335,10 +336,10 @@ def test_lagged_composes_with_land():
 
     for k in Y0["soil"]:
         np.testing.assert_allclose(
-            np.asarray(sim_p.Y["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
+            np.asarray(Yp["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
             rtol=1e-12, atol=1e-18, err_msg=k)
     np.testing.assert_allclose(
-        np.asarray(sim_p.Y["surface"]["h_s"]),
+        np.asarray(Yp["surface"]["h_s"]),
         np.asarray(sim_x.Y["surface"]["h_s"]), rtol=1e-12, atol=1e-18)
     dev = float(jnp.max(jnp.abs(sim_s.Y["soil"]["vartheta_l"]
                                 - sim_x.Y["soil"]["vartheta_l"])))

@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 from scipy.optimize import brentq
 
-from landhydrology_tpu.constants import default_earth_param_set as ps
-from landhydrology_tpu.models.soil import surface_fluxes as sf
+from landhydrology.constants import default_earth_param_set as ps
+from landhydrology.models.soil import surface_fluxes as sf
 
 KAPPA = ps.von_karman_const
 G = ps.grav
@@ -305,7 +305,7 @@ def test_decoupling_regime_flags_large_residual_with_finite_stars():
 
 
 def _flux_model(top):
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         FreeDrainage,
         SoilColumnBC,
@@ -316,7 +316,7 @@ def _flux_model(top):
         SoilParams,
         VerticalFlux,
     )
-    from landhydrology_tpu.models.soil import vanGenuchten
+    from landhydrology.models.soil import vanGenuchten
 
     return SoilModel(
         domain=Column(zlim=(-1.0, 0.0), nelements=10),
@@ -341,7 +341,7 @@ def test_flux_pipeline_against_independent_solver():
     inline: saturation humidity from Clausius-Clapeyron, the matric-potential
     humidity correction, Brent-solved MOST scales, and the static-energy
     flux assembly (cf. boundary_conditions.jl:555-620)."""
-    from landhydrology_tpu import PrescribedAtmosForcing
+    from landhydrology import PrescribedAtmosForcing
 
     u_atm, theta_atm, z_atm = 2.0, 298.0, 2.0
     rho_a, q_atm, theta_scale = 1.2, 0.008, 298.0
@@ -424,13 +424,12 @@ def test_flux_pipeline_against_independent_solver():
 
 
 def test_illinois_method_matches_multisection_on_converged_columns():
-    """The alternative f32 Illinois solver (measured SLOWER in-kernel —
-    its 16-eval serial chain does not overlap; kept as the documented
-    resolution of the issue-vs-latency question, benchmarks/RESULTS.md)
-    must agree with the multisection solve wherever both converge, and
+    """The alternative f32 Illinois solver (fewer, thinner evaluations in
+    a longer dependent chain; which of the two is faster on the device is
+    open, ROADMAP Speed item 4) must agree with the multisection solve wherever both converge, and
     flag the same decoupling columns via the residual."""
-    import landhydrology_tpu.models.soil.surface_fluxes as sf
-    from landhydrology_tpu.constants import default_earth_param_set as ps
+    import landhydrology.models.soil.surface_fluxes as sf
+    from landhydrology.constants import default_earth_param_set as ps
 
     rng = np.random.default_rng(0)
     n = 2048

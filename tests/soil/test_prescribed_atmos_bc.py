@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     PrescribedAtmosForcing,
     Simulation,
@@ -27,26 +27,26 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.constants import default_earth_param_set as param_set
-from landhydrology_tpu.domains import make_function_space
-from landhydrology_tpu.models.soil import (
+from landhydrology.constants import default_earth_param_set as param_set
+from landhydrology.domains import make_function_space
+from landhydrology.models.soil import (
     PrescribedHydrologyModel,
     PrescribedTemperatureModel,
     boundary_fluxes,
     vanGenuchten,
 )
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.models.soil.heat import (
     volumetric_heat_capacity,
     volumetric_internal_energy,
 )
-from landhydrology_tpu.models.soil.rhs import make_rhs
-from landhydrology_tpu.models.soil.surface_fluxes import (
+from landhydrology.models.soil.rhs import make_rhs
+from landhydrology.models.soil.surface_fluxes import (
     compute_turbulent_surface_fluxes,
     cp_m,
     q_vap_saturation_liquid,
     surface_conditions,
 )
-from landhydrology_tpu.models.soil.water import (
+from landhydrology.models.soil.water import (
     effective_saturation,
     matric_potential,
     volumetric_liquid_fraction,

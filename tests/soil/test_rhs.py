@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from landhydrology_tpu.constants import default_earth_param_set as param_set
-from landhydrology_tpu.domains import Column, make_function_space
-from landhydrology_tpu.models.soil import (
+from landhydrology.constants import default_earth_param_set as param_set
+from landhydrology.domains import Column, make_function_space
+from landhydrology.models.soil import (
     PrescribedHydrologyModel,
     PrescribedTemperatureModel,
     SoilColumnBC,
@@ -27,14 +27,14 @@ from landhydrology_tpu.models.soil import (
     make_update_aux,
     vanGenuchten,
 )
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.models.soil.heat import (
     k_solid,
     ksat_frozen,
     ksat_unfrozen,
     volumetric_heat_capacity,
     volumetric_internal_energy,
 )
-from landhydrology_tpu.models.soil.water import (
+from landhydrology.models.soil.water import (
     effective_saturation,
     hydraulic_conductivity,
 )
@@ -193,7 +193,7 @@ def test_assume_no_ice_specialization_exact():
             rtol=1e-14, atol=1e-20, err_msg=k,
         )
     # invalid combination rejected
-    from landhydrology_tpu.models.soil.freeze_thaw import FreezeThaw
+    from landhydrology.models.soil.freeze_thaw import FreezeThaw
 
     import pytest as _pytest
 

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     FreeDrainage,
@@ -27,8 +27,8 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.timestepping import SSPRK33
 
 
 def _expected_equilibrium(z, z_interface, nu, S_s=1e-3, alpha=2.6, n=2.0, m=0.5):
@@ -147,8 +147,8 @@ def test_bottom_dirichlet_hydrostatic_equilibrium():
     (boundary_conditions.jl:396-398 negates the whole top-face Dirichlet
     flux at the bottom, flipping the gravity term and injecting a spurious
     upward flux of 2K; the reference never tests this path)."""
-    from landhydrology_tpu.models.soil.rhs import make_rhs
-    from landhydrology_tpu.models.soil.water import hydrostatic_profile
+    from landhydrology.models.soil.rhs import make_rhs
+    from landhydrology.models.soil.water import hydrostatic_profile
 
     nu, S_s = 0.45, 1e-3
     hm = vanGenuchten(n=2.0, alpha=2.6, Ksat=1e-5, theta_r=0.0)

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 from scipy.integrate import cumulative_trapezoid, quad
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     FreeDrainage,
@@ -38,8 +38,8 @@ from landhydrology_tpu import (
     SoilParams,
     initialize_states,
 )
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.timestepping import SSPRK33
 
 # Haverkamp et al. (1977) sand in van Genuchten form, as in the reference's
 # infiltration test (richards_equation.jl:100-112)

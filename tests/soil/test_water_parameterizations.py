@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu.models.soil.water import (
+from landhydrology.models.soil.water import (
     IceImpedance,
     NoEffect,
     TemperatureDependentViscosity,

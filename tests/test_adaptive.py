@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     FreeDrainage,
@@ -18,11 +18,11 @@ from landhydrology_tpu import (
     SoilParams,
     initialize_states,
 )
-from landhydrology_tpu.adaptive import AdaptiveConfig, run_adaptive
-from landhydrology_tpu.domains import make_function_space
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.models.soil.rhs import make_rhs
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.adaptive import AdaptiveConfig, run_adaptive
+from landhydrology.domains import make_function_space
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.models.soil.rhs import make_rhs
+from landhydrology.timestepping import SSPRK33
 
 
 def _infiltration_model():
@@ -83,8 +83,8 @@ def test_adaptive_matches_fixed_fine_dt():
 def test_adaptive_handles_stiffness_without_blowup():
     """The saturated-compressibility config that destroys fixed-dt explicit
     runs (see explicit_dt_limit): the controller shrinks dt and survives."""
-    from landhydrology_tpu import VerticalFlux
-    from landhydrology_tpu.models.soil.water import hydrostatic_profile
+    from landhydrology import VerticalFlux
+    from landhydrology.models.soil.water import hydrostatic_profile
 
     hm = vanGenuchten(n=2.0, alpha=2.6, Ksat=1e-5, theta_r=0.0)
     model = SoilModel(
@@ -155,11 +155,11 @@ def _batched_ic(model):
 
 
 def test_adaptive_fused_spc1_reduces_to_run_adaptive():
-    """With steps_per_call=1 the fused macro-step IS one step-doubled step:
+    """With steps_per_call=1 the macro-step IS one step-doubled step:
     run_adaptive_fused must reproduce run_adaptive's trajectory AND its
     controller decisions (accept counts) on the same problem — pins the
-    wiring of the traced-dt kernel + segment controller."""
-    from landhydrology_tpu.adaptive import run_adaptive_fused
+    wiring of the traced-dt segment + segment controller."""
+    from landhydrology.adaptive import run_adaptive_fused
 
     model = _batched_infiltration()
     Y, Ya = _batched_ic(model)
@@ -173,7 +173,7 @@ def test_adaptive_fused_spc1_reduces_to_run_adaptive():
     )(Y)
     Yf, sf = run_adaptive_fused(
         model, Y, Ya, 0.0, tf, dt0=0.05, stepper=SSPRK33(), config=cfg,
-        steps_per_call=1, tile_cols=8, interpret=True,
+        steps_per_call=1,
     )
     assert bool(sf["converged"]) and bool(sx["converged"])
     assert int(sf["n_accepted"]) == int(sx["n_accepted"])
@@ -185,10 +185,9 @@ def test_adaptive_fused_spc1_reduces_to_run_adaptive():
 
 
 def test_adaptive_fused_segments_match_fine_reference():
-    """Segment-granular error control (steps_per_call=6) through the fused
-    kernel: matches a fine fixed-dt reference, converges, and grows dt —
-    error-controlled runs keep the kernel (VERDICT r3 item 5)."""
-    from landhydrology_tpu.adaptive import run_adaptive_fused
+    """Segment-granular error control (steps_per_call=6): matches a fine
+    fixed-dt reference, converges, and grows dt."""
+    from landhydrology.adaptive import run_adaptive_fused
 
     model = _batched_infiltration()
     Y, Ya = _batched_ic(model)
@@ -204,7 +203,7 @@ def test_adaptive_fused_segments_match_fine_reference():
     Yf, stats = run_adaptive_fused(
         model, Y, Ya, 0.0, tf, dt0=0.02, stepper=stepper,
         config=AdaptiveConfig(rtol=1e-6, atol=1e-9),
-        steps_per_call=6, tile_cols=8, interpret=True,
+        steps_per_call=6,
     )
     assert bool(stats["converged"])
     v_ref = np.asarray(Yr["soil"]["vartheta_l"])
@@ -238,19 +237,19 @@ def _tiny_land(surface_update="step"):
     must honor the land policy steppers like every other engine."""
     import jax.numpy as jnp
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         PrescribedAtmosForcing,
         SoilEnergyModel,
         VerticalFlux,
     )
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.land import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.land import (
         LandModel,
         PulsePrecipitation,
         SurfaceWaterModel,
         initialize_states as land_init,
     )
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
@@ -307,8 +306,8 @@ def test_adaptive_land_model_matches_fixed_fine_dt():
     composition."""
     import numpy as np
 
-    from landhydrology_tpu.models.land import make_rhs as make_land_rhs
-    from landhydrology_tpu.simulations import Simulation
+    from landhydrology.models.land import make_rhs as make_land_rhs
+    from landhydrology.simulations import Simulation
 
     land, Y, Ya = _tiny_land()
     rhs = make_land_rhs(land)
@@ -332,12 +331,12 @@ def test_adaptive_land_model_matches_fixed_fine_dt():
 
 def test_adaptive_fused_land_matches_adaptive_xla():
     """run_adaptive_fused on the LandModel == run_adaptive on the same
-    model (fused segments of 1 step reduce exactly to the XLA controller;
-    the land policies ride inside the kernel)."""
+    model (segments of 1 step reduce exactly to the per-step controller;
+    the land policies ride inside the segment)."""
     import numpy as np
 
-    from landhydrology_tpu.adaptive import run_adaptive_fused
-    from landhydrology_tpu.models.land import make_rhs as make_land_rhs
+    from landhydrology.adaptive import run_adaptive_fused
+    from landhydrology.models.land import make_rhs as make_land_rhs
 
     land, Y, Ya = _tiny_land()
     cfg = AdaptiveConfig(rtol=1e-5, atol=1e-8)
@@ -347,7 +346,7 @@ def test_adaptive_fused_land_matches_adaptive_xla():
     )
     Yf, sf_ = run_adaptive_fused(
         land, Y, Ya, 0.0, tf, dt0=2.0, config=cfg,
-        steps_per_call=1, tile_cols=8,
+        steps_per_call=1,
     )
     assert bool(sx["converged"]) and bool(sf_["converged"])
     assert int(sx["n_accepted"]) == int(sf_["n_accepted"])

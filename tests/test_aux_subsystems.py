@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     PrescribedTemperatureModel,
     Simulation,
@@ -17,11 +17,11 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.checkpoint import CheckpointManager
-from landhydrology_tpu.constants import default_earth_param_set as ps
-from landhydrology_tpu.diagnostics import energy_total, nan_guard, water_mass
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.checkpoint import CheckpointManager
+from landhydrology.constants import default_earth_param_set as ps
+from landhydrology.diagnostics import energy_total, nan_guard, water_mass
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.timestepping import SSPRK33
 
 
 def _sim(Y=None, Ya=None, tf=100.0):
@@ -65,6 +65,7 @@ def test_checkpoint_roundtrip_and_resume(tmp_path, use_orbax):
     mgr = CheckpointManager(str(tmp_path / "ckpt"), use_orbax=use_orbax)
     p = mgr.save(step=50, Y=sim_a.Y, t=sim_a.t)
     assert mgr.latest() == 50
+    assert p.endswith(".orbax" if use_orbax else ".npz")
 
     Y_restored, t_restored, step = mgr.restore(Y)
     assert step == 50 and t_restored == 50.0
@@ -74,6 +75,14 @@ def test_checkpoint_roundtrip_and_resume(tmp_path, use_orbax):
     np.testing.assert_allclose(
         np.asarray(sim_b.Y["soil"]["vartheta_l"]), v_straight, rtol=1e-15
     )
+
+
+def test_checkpoint_default_is_npz(tmp_path):
+    """Without use_orbax the manager writes the numpy format, which needs
+    no package beyond numpy."""
+    _, Y, _, _ = _sim()
+    path = CheckpointManager(str(tmp_path / "ckpt")).save(step=1, Y=Y, t=1.0)
+    assert path.endswith(".npz")
 
 
 def test_water_mass_tracks_boundary_flux():
@@ -97,18 +106,18 @@ def test_nan_guard_raises():
     jax.effects_barrier()
 
 
-def test_simulation_pallas_engine_and_sink(tmp_path):
-    """engine='pallas' (interpret on CPU) matches the XLA engine exactly,
-    and run(sink=...) streams the trajectory to the native writer."""
-    from landhydrology_tpu.runtime import TrajectorySink, read_trajectory
-    from landhydrology_tpu import SoilEnergyModel
-    from landhydrology_tpu.models.soil.heat import (
+def test_simulation_removed_engine_and_sink(tmp_path):
+    """The removed engine option raises, and run(sink=...) streams the
+    trajectory to the native writer."""
+    from landhydrology.runtime import TrajectorySink, read_trajectory
+    from landhydrology import SoilEnergyModel
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
     import dataclasses
 
-    from landhydrology_tpu import SoilColumnBC as _BC
+    from landhydrology import SoilColumnBC as _BC
 
     model, Y0, Ya0, _ = _sim()
     model = dataclasses.replace(
@@ -136,25 +145,19 @@ def test_simulation_pallas_engine_and_sink(tmp_path):
             ),
         }
     }
-    from landhydrology_tpu.domains import make_function_space
+    from landhydrology.domains import make_function_space
 
     Ya = {"zc": make_function_space(model.domain, jnp.float64).zc, "soil": {}}
 
     kw = dict(Y_init=Y, Ya_init=Ya, dt=1.0, tspan=(0.0, 24.0), saveat=8.0)
-    sim_x = Simulation(model, SSPRK33(), **kw)
-    sim_x.run()
-    sim_p = Simulation(
-        model, SSPRK33(), engine="pallas", steps_per_call=4, tile_cols=8, **kw
-    )
+    with pytest.raises(TypeError, match="removed"):
+        Simulation(model, SSPRK33(), engine="pallas", tile_cols=8, **kw)
+    sim = Simulation(model, SSPRK33(), **kw)
     sink = TrajectorySink(str(tmp_path / "traj.bin"))
-    sol = sim_p.run(sink=sink)
+    sol = sim.run(sink=sink)
     sink.close()
 
-    np.testing.assert_allclose(
-        np.asarray(sim_p.Y["soil"]["vartheta_l"]),
-        np.asarray(sim_x.Y["soil"]["vartheta_l"]),
-        rtol=1e-13,
-    )
+    assert np.all(np.isfinite(np.asarray(sim.Y["soil"]["vartheta_l"])))
     back = read_trajectory(str(tmp_path / "traj.bin"))
     assert len(back) == len(sol)
     np.testing.assert_allclose(
@@ -211,9 +214,9 @@ def test_simulation_derives_ya_when_omitted():
 def test_explicit_dt_limit_flags_saturated_stiffness():
     """The CFL estimator must flag the saturated-compressibility regime
     (D = K/S_s) that silently destabilizes explicit runs."""
-    from landhydrology_tpu.diagnostics import explicit_dt_limit
-    from landhydrology_tpu.models.soil.water import hydrostatic_profile
-    from landhydrology_tpu.models.soil import vanGenuchten as vG
+    from landhydrology.diagnostics import explicit_dt_limit
+    from landhydrology.models.soil.water import hydrostatic_profile
+    from landhydrology.models.soil import vanGenuchten as vG
 
     hm = vG(n=2.0, alpha=2.6, Ksat=1e-5, theta_r=0.0)
     model = SoilModel(

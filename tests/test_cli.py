@@ -1,7 +1,7 @@
-"""End-to-end tests of the config-file CLI driver (``landhydrology_tpu.cli``).
+"""End-to-end tests of the config-file CLI driver (``landhydrology.cli``).
 
 The reference's user entry is scripts only (SURVEY.md §1 row 8); the CLI is
-a TPU-build addition, so the oracle here is the library API itself: a run
+an addition beyond the reference, so the oracle here is the library API itself: a run
 driven through ``cli.cmd_run`` must reproduce the same trajectory as the
 equivalent hand-composed ``Simulation``.
 """
@@ -13,7 +13,7 @@ import sys
 import numpy as np
 import pytest
 
-from landhydrology_tpu import cli
+from landhydrology import cli
 
 
 @pytest.fixture()
@@ -47,7 +47,7 @@ def test_example_config_runs_and_matches_library(example_cfg):
     assert data["vartheta_l"].shape[0] == len(data["t"])
 
     # oracle: the same run composed by hand through the library API
-    from landhydrology_tpu.simulations import Simulation
+    from landhydrology.simulations import Simulation
 
     model, stepper, Y, Ya, sim_kwargs, _ = cli.load_run(str(cfg_path))
     sol = Simulation(model, stepper, Y_init=Y, Ya_init=Ya, **sim_kwargs).run()
@@ -97,9 +97,9 @@ def test_hydrostatic_ic_and_checkpoint_resume(example_cfg):
 
 
 def test_main_module_entrypoint(tmp_path):
-    """`python -m landhydrology_tpu example` works as a subprocess."""
+    """`python -m landhydrology example` works as a subprocess."""
     proc = subprocess.run(
-        [sys.executable, "-m", "landhydrology_tpu", "example"],
+        [sys.executable, "-m", "landhydrology", "example"],
         capture_output=True,
         text=True,
         timeout=240,
@@ -128,13 +128,13 @@ def test_flagship_config_round_trips_and_runs(flagship_cfg):
     (VERDICT r2 item 7), matching the hand-composed Simulation."""
     import jax.numpy as jnp
 
-    from landhydrology_tpu.config import from_config, to_config
-    from landhydrology_tpu.models.land import (
+    from landhydrology.config import from_config, to_config
+    from landhydrology.models.land import (
         LandModel,
         PulsePrecipitation,
         RunoffRouting,
     )
-    from landhydrology_tpu.simulations import Simulation
+    from landhydrology.simulations import Simulation
 
     cfg, tmp_path = flagship_cfg
     land = from_config(cfg["model"])
@@ -215,3 +215,15 @@ def test_cli_implicit_stepper_with_tridiag_backend(example_cfg):
     assert stepper.tridiag == "pcr"
     assert stepper.iters == 2
     assert cli.cmd_run(str(cfg_path)) == 0
+
+
+@pytest.mark.parametrize("key", ["engine", "steps_per_call", "tile_cols"])
+def test_removed_engine_keys_fail_loudly(example_cfg, key):
+    """A config that still names an option of the removed Pallas engine is
+    refused with a message saying so; it is not silently run on XLA."""
+    cfg, tmp = example_cfg
+    cfg["simulation"][key] = {"engine": "pallas"}.get(key, 48)
+    path = tmp / "run_removed.json"
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(TypeError, match="removed"):
+        cli.load_run(str(path))

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     FreeDrainage,
     PrescribedAtmosForcing,
@@ -19,11 +19,11 @@ from landhydrology_tpu import (
     SoilParams,
     VerticalFlux,
 )
-from landhydrology_tpu.config import from_config, to_config
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.models.soil.freeze_thaw import FreezeThaw
-from landhydrology_tpu.models.soil.model import LateralSurfaceCoupling
-from landhydrology_tpu.models.soil.rhs import make_rhs
+from landhydrology.config import from_config, to_config
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.models.soil.freeze_thaw import FreezeThaw
+from landhydrology.models.soil.model import LateralSurfaceCoupling
+from landhydrology.models.soil.rhs import make_rhs
 
 
 def _model():
@@ -78,7 +78,7 @@ def test_array_fields_roundtrip():
 
 
 def test_callables_rejected_with_clear_error():
-    from landhydrology_tpu import Dirichlet
+    from landhydrology import Dirichlet
 
     bc = Dirichlet(lambda t: 0.1)
     with pytest.raises(TypeError, match="callable"):

@@ -7,7 +7,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     PrescribedHydrologyModel,
@@ -19,13 +19,13 @@ from landhydrology_tpu import (
     SoilParams,
     initialize_states,
 )
-from landhydrology_tpu.constants import default_earth_param_set as ps
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.constants import default_earth_param_set as ps
+from landhydrology.models.soil.heat import (
     temperature_from_rho_e_int,
     volumetric_heat_capacity,
     volumetric_internal_energy,
 )
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.timestepping import SSPRK33
 
 RHO_C_DS = 0.43314518988433487  # unit diffusivity config (heat test)
 TAU, A = 1.0, 5.0

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu.domains import Column, make_function_space
+from landhydrology.domains import Column, make_function_space
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])

@@ -3,7 +3,7 @@ a production run SIGKILLed mid-flight must resume from its last atomic
 checkpoint and land on the same final state as an uninterrupted run.
 
 The reference has no recovery story at all (a failed solve just throws);
-this is the TPU build's crash-consistency contract: checkpoints are atomic
+this is the package's crash-consistency contract: checkpoints are atomic
 (tmp + rename / orbax commit), resume re-enters the compiled loop at the
 saved (Y, t), and the trajectory is reproducible across the restart."""
 
@@ -41,7 +41,7 @@ def _run(workdir, resume=False, timeout=600):
 
 
 def _final_state(workdir):
-    from landhydrology_tpu.checkpoint import CheckpointManager
+    from landhydrology.checkpoint import CheckpointManager
 
     mgr = CheckpointManager(os.path.join(workdir, "ckpt"))
     # template shapes must match the driver's model

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     PrescribedAtmosForcing,
     SoilColumnBC,
@@ -22,19 +22,20 @@ from landhydrology_tpu import (
     VerticalFlux,
     initialize_states,
 )
-from landhydrology_tpu.constants import default_earth_param_set as ps
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.constants import default_earth_param_set as ps
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.models.soil.heat import (
     volumetric_heat_capacity,
     volumetric_internal_energy,
 )
-from landhydrology_tpu.runtime import (
+from landhydrology.runtime import (
     ForcingReader,
     make_forced_segment_run,
     run_forced,
     write_forcing,
 )
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.segment import make_segment_run
+from landhydrology.timestepping import SSPRK33
 
 NZ, NCOL = 12, 16
 DT = 60.0
@@ -144,7 +145,7 @@ def test_windowed_streaming_matches_in_memory(tmp_path):
 def test_forced_land_precipitation_ponds(tmp_path):
     """'precipitation' rows drive the LandModel pond: a rain pulse in the
     file makes h_s grow then drain, matching the in-memory run exactly."""
-    from landhydrology_tpu.models.land import (
+    from landhydrology.models.land import (
         LandModel,
         SurfaceWaterModel,
         initialize_states as land_init,
@@ -188,15 +189,14 @@ def test_forced_land_precipitation_ponds(tmp_path):
         )
 
 
-def test_fused_forced_engine_matches_xla():
-    """engine='fused' streams the forcing rows THROUGH the Pallas kernel:
-    the trajectory equals the per-step XLA forced scan (same
-    piecewise-constant row semantics), including a chunk remainder and a
-    per-column forcing field."""
-    n_steps = 29  # not a multiple of steps_per_call: exercises the tail
+def test_segment_forced_rows_match_forced_scan():
+    """Step-indexed forcing rows through the segment runner: the
+    trajectory equals the per-step forced scan (same piecewise-constant row
+    semantics), with a per-step scalar and a per-column forcing field."""
+    n_steps = 29
     rng = np.random.default_rng(7)
     fields = _diurnal_forcing(n_steps, rng)
-    # make one field per-step-scalar to cover the SMEM row path too
+    # one per-step scalar field beside the per-column ones
     fields["theta_atm"] = fields["theta_atm"][:, 0].copy()
 
     model = _atmos_soil()
@@ -208,13 +208,13 @@ def test_fused_forced_engine_matches_xla():
     )
     Yx, tx = seg_x(Y, Ya, 0.0, forcing)
 
-    seg_f = make_forced_segment_run(
-        model, SSPRK33(), dt=DT, field_names=sorted(fields),
-        engine="fused", steps_per_call=8, tile_cols=NCOL,
+    seg_f = make_segment_run(
+        model, SSPRK33(), dt=DT, steps_per_call=n_steps,
+        forcing_fields=sorted(fields),
     )
-    Yf, tf = seg_f(Y, Ya, 0.0, forcing)
+    Yf = seg_f(Y, 0.0, forcing=forcing)
 
-    assert float(tf) == pytest.approx(float(tx))
+    assert float(tx) == pytest.approx(n_steps * DT)
     for k in Y["soil"]:
         np.testing.assert_allclose(
             np.asarray(Yf["soil"][k]), np.asarray(Yx["soil"][k]),
@@ -222,11 +222,11 @@ def test_fused_forced_engine_matches_xla():
         )
 
 
-def test_fused_forced_land_precipitation_matches_xla():
-    """Per-column precipitation rows stream through the fused kernel for
+def test_segment_forced_land_precipitation_matches_forced_scan():
+    """Per-column precipitation rows stream through the segment runner for
     the LandModel (the reanalysis flagship composition): pond + soil match
-    the XLA forced scan."""
-    from landhydrology_tpu.models.land import (
+    the forced scan."""
+    from landhydrology.models.land import (
         LandModel,
         SurfaceWaterModel,
         initialize_states as land_init,
@@ -255,11 +255,11 @@ def test_fused_forced_land_precipitation_matches_xla():
         land, SSPRK33(), dt=DT, field_names=sorted(fields)
     )
     Yx, _ = seg_x(Y, Ya, 0.0, forcing)
-    seg_f = make_forced_segment_run(
-        land, SSPRK33(), dt=DT, field_names=sorted(fields),
-        engine="fused", steps_per_call=8, tile_cols=NCOL,
+    seg_f = make_segment_run(
+        land, SSPRK33(), dt=DT, steps_per_call=n_steps,
+        forcing_fields=sorted(fields),
     )
-    Yf, _ = seg_f(Y, Ya, 0.0, forcing)
+    Yf = seg_f(Y, 0.0, forcing=forcing)
 
     assert float(jnp.max(Yx["surface"]["h_s"])) > 1e-5  # the pulse ponded
     np.testing.assert_allclose(
@@ -301,7 +301,7 @@ def test_forced_run_under_pjit_sharding(tmp_path):
         pytest.skip("needs the 8-device virtual CPU mesh")
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from landhydrology_tpu.parallel import make_column_mesh
+    from landhydrology.parallel import make_column_mesh
 
     n_steps = 16
     fields = _diurnal_forcing(n_steps, np.random.default_rng(2))
@@ -343,10 +343,10 @@ def _pulse_tables(n_rows, rng):
 
 
 def test_adaptive_forced_xla_matches_fine_fixed_dt():
-    """run_adaptive_forced (XLA engine) under a piecewise-constant-in-time
+    """run_adaptive_forced under a piecewise-constant-in-time
     forcing table == a fine fixed-dt forced scan with the rows repeated to
     the fine grid (identical forcing semantics), to controller tolerance."""
-    from landhydrology_tpu.adaptive import AdaptiveConfig, run_adaptive_forced
+    from landhydrology.adaptive import AdaptiveConfig, run_adaptive_forced
 
     n_rows, dtF = 12, 240.0
     rng = np.random.default_rng(5)
@@ -394,11 +394,15 @@ def test_adaptive_forced_xla_matches_fine_fixed_dt():
     )
 
 
-def test_adaptive_forced_fused_matches_xla_engine():
-    """engine='fused' (time-indexed rows through the Pallas kernel, macro
-    segments of 1 step) takes the same controller decisions and produces
-    the same trajectory as the XLA engine."""
-    from landhydrology_tpu.adaptive import AdaptiveConfig, run_adaptive_forced
+def test_adaptive_fused_forced_spc1_matches_adaptive_forced():
+    """run_adaptive_fused with time-indexed rows and segments of 1 step
+    takes the same controller decisions and produces the same trajectory
+    as run_adaptive_forced."""
+    from landhydrology.adaptive import (
+        AdaptiveConfig,
+        run_adaptive_forced,
+        run_adaptive_fused,
+    )
 
     n_rows, dtF = 8, 240.0
     tables = _pulse_tables(n_rows, np.random.default_rng(9))
@@ -409,11 +413,11 @@ def test_adaptive_forced_fused_matches_xla_engine():
 
     Yx, sx = run_adaptive_forced(
         model, Y, Ya, 0.0, tf, dt0=60.0, forcing=tables, forcing_dt=dtF,
-        config=cfg, engine="xla",
+        config=cfg,
     )
-    Yf, sf = run_adaptive_forced(
+    Yf, sf = run_adaptive_fused(
         model, Y, Ya, 0.0, tf, dt0=60.0, forcing=tables, forcing_dt=dtF,
-        config=cfg, engine="fused", steps_per_call=1, tile_cols=NCOL,
+        config=cfg, steps_per_call=1,
     )
     assert bool(sx["converged"]) and bool(sf["converged"])
     assert int(sf["n_accepted"]) == int(sx["n_accepted"])
@@ -426,9 +430,9 @@ def test_adaptive_forced_fused_matches_xla_engine():
 
 
 def test_adaptive_forced_fused_segments_accuracy():
-    """Macro-segment fused adaptive (steps_per_call=4) still lands within
-    tolerance of the fine fixed-dt forced reference."""
-    from landhydrology_tpu.adaptive import AdaptiveConfig, run_adaptive_forced
+    """Macro-segment adaptive (steps_per_call=4) under time-indexed forcing
+    still lands within tolerance of the fine fixed-dt forced reference."""
+    from landhydrology.adaptive import AdaptiveConfig, run_adaptive_fused
 
     n_rows, dtF = 8, 240.0
     tables = _pulse_tables(n_rows, np.random.default_rng(11))
@@ -443,11 +447,11 @@ def test_adaptive_forced_fused_segments_accuracy():
     )
     Yref, _ = seg(Y, Ya, 0.0, {k: jnp.asarray(v) for k, v in fine.items()})
 
-    Yf, stats = run_adaptive_forced(
+    Yf, stats = run_adaptive_fused(
         model, Y, Ya, 0.0, tf, dt0=30.0,
         forcing=tables, forcing_dt=dtF,
         config=AdaptiveConfig(rtol=1e-7, atol=1e-12, dt_max=dtF / 4),
-        engine="fused", steps_per_call=4, tile_cols=NCOL,
+        steps_per_call=4,
     )
     assert bool(stats["converged"])
     for k in Y["soil"]:
@@ -457,32 +461,32 @@ def test_adaptive_forced_fused_segments_accuracy():
 
 
 def test_adaptive_forced_validation():
-    from landhydrology_tpu.adaptive import run_adaptive_fused
+    from landhydrology.adaptive import run_adaptive_fused
 
     model = _atmos_soil()
     Y, Ya = initialize_states(model, _ic, 0.0)
     with pytest.raises(ValueError, match="forcing_dt"):
         run_adaptive_fused(
-            model, Y, Ya, 0.0, 1.0, 0.1,
-            forcing={"u_atm": jnp.ones(4)}, tile_cols=NCOL,
+            model, Y, Ya, 0.0, 1.0, 0.1, forcing={"u_atm": jnp.ones(4)},
         )
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
-
     with pytest.raises(ValueError, match="forcing_time_grid"):
-        make_fused_column_run(
-            model, SSPRK33(), dt=1.0, forcing_time_grid=(0.0, 1.0, 4),
-            interpret=True,
+        make_segment_run(
+            model, SSPRK33(), dt=1.0, forcing_time_grid=(0.0, 1.0, 4)
         )
 
 
 def test_adaptive_forced_with_implicit_stepper_both_engines():
     """The full composition: TR-BDF2 (implicit, PCR backend) under
-    adaptive error control under streamed time-varying forcing, on BOTH
-    engines — the 'every engine enforces every policy' bar extended to
-    the implicit steppers."""
-    from landhydrology_tpu.adaptive import AdaptiveConfig, run_adaptive_forced
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.imex import TRBDF2Soil
+    adaptive error control under streamed time-varying forcing, on both
+    the per-step and the segment driver — the 'every engine enforces every
+    policy' bar extended to the implicit steppers."""
+    from landhydrology.adaptive import (
+        AdaptiveConfig,
+        run_adaptive_forced,
+        run_adaptive_fused,
+    )
+    from landhydrology.domains import make_function_space
+    from landhydrology.imex import TRBDF2Soil
 
     n_rows, dtF = 6, 600.0
     tables = _pulse_tables(n_rows, np.random.default_rng(13))
@@ -495,12 +499,11 @@ def test_adaptive_forced_with_implicit_stepper_both_engines():
 
     Yx, sx = run_adaptive_forced(
         model, Y, Ya, 0.0, tf, dt0=120.0, forcing=tables, forcing_dt=dtF,
-        stepper=stepper, config=cfg, engine="xla",
+        stepper=stepper, config=cfg,
     )
-    Yf, sf = run_adaptive_forced(
+    Yf, sf = run_adaptive_fused(
         model, Y, Ya, 0.0, tf, dt0=120.0, forcing=tables, forcing_dt=dtF,
-        stepper=stepper, config=cfg, engine="fused", steps_per_call=1,
-        tile_cols=NCOL,
+        stepper=stepper, config=cfg, steps_per_call=1,
     )
     assert bool(sx["converged"]) and bool(sf["converged"])
     assert int(sf["n_accepted"]) == int(sx["n_accepted"])
@@ -511,11 +514,12 @@ def test_adaptive_forced_with_implicit_stepper_both_engines():
         )
 
 
-def test_forced_scan_with_implicit_stepper_fused_matches_xla():
-    """make_forced_segment_run drives the implicit stepper too: fused
-    (rows through the kernel, TR-BDF2 in-kernel) == XLA forced scan."""
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.imex import TRBDF2Soil
+def test_forced_scan_with_implicit_stepper_segment_matches():
+    """make_forced_segment_run drives the implicit stepper too, and the
+    segment runner's step-indexed rows with TR-BDF2 give the same
+    trajectory."""
+    from landhydrology.domains import make_function_space
+    from landhydrology.imex import TRBDF2Soil
 
     n_steps = 12
     fields = _diurnal_forcing(n_steps, np.random.default_rng(17))
@@ -529,11 +533,11 @@ def test_forced_scan_with_implicit_stepper_fused_matches_xla():
         model, stepper, dt=300.0, field_names=sorted(fields)
     )
     Yx, _ = seg_x(Y, Ya, 0.0, forcing)
-    seg_f = make_forced_segment_run(
-        model, stepper, dt=300.0, field_names=sorted(fields),
-        engine="fused", steps_per_call=4, tile_cols=NCOL,
+    seg_f = make_segment_run(
+        model, stepper, dt=300.0, steps_per_call=n_steps,
+        forcing_fields=sorted(fields),
     )
-    Yf, _ = seg_f(Y, Ya, 0.0, forcing)
+    Yf = seg_f(Y, 0.0, forcing=forcing)
     for k in Y["soil"]:
         np.testing.assert_allclose(
             np.asarray(Yf["soil"][k]), np.asarray(Yx["soil"][k]),
@@ -545,9 +549,8 @@ def test_time_indexed_rows_clamp_at_table_ends():
     """Steps whose start time falls before the forcing grid's origin or
     beyond its last row read the clamped end rows (documented semantics),
     on both engines identically."""
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
-    from landhydrology_tpu.runtime.forcing_driver import TimeForcedStepper
+    from landhydrology.domains import make_function_space
+    from landhydrology.runtime.forcing_driver import TimeForcedStepper
 
     n_rows, dtF = 4, 100.0
     tables = {
@@ -574,9 +577,9 @@ def test_time_indexed_rows_clamp_at_table_ends():
         Yx = st.step(None, Yx, Ya, t, jnp.asarray(dt))
         t = t + dt
 
-    run = make_fused_column_run(
-        model, SSPRK33(), dt=dt, steps_per_call=n, tile_cols=NCOL,
-        interpret=True, forcing_fields=tuple(sorted(tables)),
+    run = make_segment_run(
+        model, SSPRK33(), dt=dt, steps_per_call=n,
+        forcing_fields=tuple(sorted(tables)),
         forcing_time_grid=(t_start, dtF, n_rows),
     )
     Yk = run(Y, 0.0, forcing=tables)
@@ -612,19 +615,28 @@ def test_time_indexed_rows_clamp_at_table_ends():
         )
 
 
-def test_time_indexed_table_vmem_guard():
-    """Oversized per-column time-indexed tables raise the actionable
-    VMEM-budget error, not an opaque Mosaic failure."""
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
+@pytest.mark.parametrize(
+    "call",
+    ["make_forced_segment_run", "run_forced", "run_adaptive_forced"],
+)
+def test_removed_engine_options_raise(call):
+    """Options of the removed Pallas engine fail loudly instead of running
+    the XLA path under a name that no longer means anything."""
+    from landhydrology.adaptive import run_adaptive_forced
 
     model = _atmos_soil()
     Y, Ya = initialize_states(model, _ic, 0.0)
-    n_rows = 300_000  # 300k rows x 16 cols x 4 B ~ 18 MB > the 4 MB budget
-    run = make_fused_column_run(
-        model, SSPRK33(), dt=1.0, steps_per_call=2, tile_cols=NCOL,
-        interpret=True, forcing_fields=("q_atm",),
-        forcing_time_grid=(0.0, 1.0, n_rows),
-    )
-    big = {"q_atm": jnp.zeros((n_rows, NCOL))}
-    with pytest.raises(ValueError, match="VMEM"):
-        run(Y, 0.0, forcing=big)
+    calls = {
+        "make_forced_segment_run": lambda: make_forced_segment_run(
+            model, field_names=("u_atm",), engine="fused"
+        ),
+        "run_forced": lambda: run_forced(
+            model, Y, Ya, None, tile_cols=NCOL
+        ),
+        "run_adaptive_forced": lambda: run_adaptive_forced(
+            model, Y, Ya, 0.0, 1.0, 0.1, forcing={"u_atm": jnp.ones(4)},
+            forcing_dt=1.0, engine="fused", steps_per_call=4,
+        ),
+    }
+    with pytest.raises(TypeError, match="removed"):
+        calls[call]()

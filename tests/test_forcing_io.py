@@ -5,8 +5,8 @@ driven through windowed streaming."""
 import numpy as np
 import pytest
 
-from landhydrology_tpu.runtime import forcing as rf
-from landhydrology_tpu.runtime import ForcingReader, stream_windows, write_forcing
+from landhydrology.runtime import forcing as rf
+from landhydrology.runtime import ForcingReader, stream_windows, write_forcing
 
 
 def _make_file(path, n_times=48, n_cols=6, dtype=np.float32, seed=0):
@@ -95,7 +95,7 @@ def test_forced_simulation_stream(tmp_path):
     with the identical flux series (library-API oracle)."""
     import jax.numpy as jnp
 
-    from landhydrology_tpu import (
+    from landhydrology import (
         Column,
         FreeDrainage,
         PrescribedTemperatureModel,
@@ -108,8 +108,8 @@ def test_forced_simulation_stream(tmp_path):
         VerticalFlux,
         initialize_states,
     )
-    from landhydrology_tpu.models.soil import vanGenuchten
-    from landhydrology_tpu.timestepping import SSPRK33
+    from landhydrology.models.soil import vanGenuchten
+    from landhydrology.timestepping import SSPRK33
 
     n_seg, seg_len, dt = 6, 4, 50.0
     times = np.arange(n_seg, dtype=np.float64) * seg_len * dt

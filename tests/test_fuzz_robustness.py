@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     FreeDrainage,
@@ -23,15 +23,15 @@ from landhydrology_tpu import (
     SoilParams,
     VerticalFlux,
 )
-from landhydrology_tpu.constants import default_earth_param_set as ps
-from landhydrology_tpu.domains import make_function_space
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.models.soil.freeze_thaw import FreezeThaw
-from landhydrology_tpu.models.soil.heat import (
+from landhydrology.constants import default_earth_param_set as ps
+from landhydrology.domains import make_function_space
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.models.soil.freeze_thaw import FreezeThaw
+from landhydrology.models.soil.heat import (
     volumetric_heat_capacity,
     volumetric_internal_energy,
 )
-from landhydrology_tpu.models.soil.rhs import make_rhs
+from landhydrology.models.soil.rhs import make_rhs
 
 NZ, NCOL = 12, 16
 

@@ -4,7 +4,7 @@ of BASELINE.md's "vartheta_l / rho_e_int allclose after N steps" criterion.
 
 Every execution path must reproduce the frozen numerics:
 - the jit XLA scan path in f64 (exact),
-- the fused Pallas kernel (exact — same traced physics),
+- the multi-step segment runner (exact — same traced physics),
 - the f32 path (loose tolerance — dtype is a config axis).
 """
 
@@ -17,10 +17,10 @@ import pytest
 
 from tests.data.golden_config import DT, N_STEPS, build_model_and_state
 
-from landhydrology_tpu.domains import make_function_space
-from landhydrology_tpu.models.soil.rhs import make_rhs
-from landhydrology_tpu.ops.pallas import make_fused_column_run
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.domains import make_function_space
+from landhydrology.models.soil.rhs import make_rhs
+from landhydrology.segment import make_segment_run
+from landhydrology.timestepping import SSPRK33
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden_coupled_f64.npz")
 
@@ -58,11 +58,10 @@ def test_xla_f64_matches_golden(golden):
         )
 
 
-def test_pallas_matches_golden(golden):
+def test_segment_matches_golden(golden):
     model, Y, Ya, dt = build_model_and_state(jnp.float64)
-    run = make_fused_column_run(
-        model, SSPRK33(), dt=dt, steps_per_call=N_STEPS, tile_cols=8,
-        interpret=True,
+    run = make_segment_run(
+        model, SSPRK33(), dt=dt, steps_per_call=N_STEPS
     )
     Yf = run(Y, 0.0)
     for k in ("vartheta_l", "theta_i", "rho_e_int"):
@@ -115,8 +114,8 @@ def test_land_flagship_matches_golden():
 
 
 def test_freeze_thaw_matches_golden_both_engines():
-    """Rate-based freeze-thaw under a -10C surface: XLA scan AND the fused
-    Pallas kernel reproduce the frozen trajectory (ice mass included)."""
+    """Rate-based freeze-thaw under a -10C surface: XLA scan AND the
+    segment runner reproduce the frozen trajectory (ice mass included)."""
     from tests.data.golden_config import (
         FREEZE_STEPS,
         build_freeze_model_and_state,
@@ -138,11 +137,10 @@ def test_freeze_thaw_matches_golden_both_engines():
 
     Yx = run(Y, jnp.asarray(0.0))
     assert float(jnp.max(Yx["soil"]["theta_i"])) > 1e-4  # ice formed
-    fused = make_fused_column_run(
-        model, SSPRK33(), dt=dt, steps_per_call=FREEZE_STEPS, tile_cols=4,
-        interpret=True,
+    segment = make_segment_run(
+        model, SSPRK33(), dt=dt, steps_per_call=FREEZE_STEPS
     )
-    Yp = fused(Y, 0.0)
+    Yp = segment(Y, 0.0)
     for k in ("vartheta_l", "theta_i", "rho_e_int"):
         np.testing.assert_allclose(
             np.asarray(Yx["soil"][k]), golden[k], rtol=1e-13, atol=1e-18,
@@ -150,17 +148,17 @@ def test_freeze_thaw_matches_golden_both_engines():
         )
         np.testing.assert_allclose(
             np.asarray(Yp["soil"][k]), golden[k], rtol=1e-12, atol=1e-16,
-            err_msg=f"pallas/{k}",
+            err_msg=f"segment/{k}",
         )
 
 
 def test_forced_run_matches_golden_both_engines():
-    """Time-varying MOST forcing from a deterministic table: the XLA
-    forced scan AND the fused forcing-stream engine reproduce the frozen
-    trajectory."""
+    """Time-varying MOST forcing from a deterministic table: the forced
+    scan AND the segment runner's step-indexed forcing rows reproduce the
+    frozen trajectory."""
     from tests.data.golden_config import build_forced_model_state_and_rows
 
-    from landhydrology_tpu.runtime import make_forced_segment_run
+    from landhydrology.runtime import make_forced_segment_run
 
     golden = np.load(GOLDEN_FORCED)
     model, Y, Ya, rows, dt = build_forced_model_state_and_rows(jnp.float64)
@@ -168,11 +166,12 @@ def test_forced_run_matches_golden_both_engines():
         model, SSPRK33(), dt=dt, field_names=sorted(rows)
     )
     Yx, _ = seg_x(Y, Ya, 0.0, rows)
-    seg_f = make_forced_segment_run(
-        model, SSPRK33(), dt=dt, field_names=sorted(rows), engine="fused",
-        steps_per_call=8, tile_cols=16,
+    n_rows = next(iter(rows.values())).shape[0]
+    seg_f = make_segment_run(
+        model, SSPRK33(), dt=dt, steps_per_call=n_rows,
+        forcing_fields=sorted(rows),
     )
-    Yf, _ = seg_f(Y, Ya, 0.0, rows)
+    Yf = seg_f(Y, 0.0, forcing=rows)
     for k in ("vartheta_l", "theta_i", "rho_e_int"):
         np.testing.assert_allclose(
             np.asarray(Yx["soil"][k]), golden[k], rtol=1e-13, atol=1e-18,
@@ -180,7 +179,7 @@ def test_forced_run_matches_golden_both_engines():
         )
         np.testing.assert_allclose(
             np.asarray(Yf["soil"][k]), golden[k], rtol=1e-12, atol=1e-16,
-            err_msg=f"fused/{k}",
+            err_msg=f"segment/{k}",
         )
 
 
@@ -207,11 +206,11 @@ def test_lagged_production_mode_matches_golden_both_engines():
     """coefficient_update='step' (the production throughput mode) has its
     OWN frozen trajectory — a first-order-split neighbor of the stage
     trajectory, not the same numbers — reproduced by the wrapped XLA scan
-    and the fused kernel (which applies the lagged policy in-kernel)."""
+    and the segment runner (which applies the lagged policy itself)."""
     import dataclasses
 
     from tests.data.golden_config import build_model_and_state
-    from landhydrology_tpu.models.soil.lagged import wrap_stepper_for_soil
+    from landhydrology.models.soil.lagged import wrap_stepper_for_soil
 
     golden = np.load(GOLDEN_LAGGED)
     model, Y, Ya, dt = build_model_and_state(jnp.float64)
@@ -230,11 +229,10 @@ def test_lagged_production_mode_matches_golden_both_engines():
         return Yf
 
     Yx = run(Y, jnp.asarray(0.0))
-    fused = make_fused_column_run(
-        model, SSPRK33(), dt=dt, steps_per_call=N_STEPS, tile_cols=8,
-        interpret=True,
+    segment = make_segment_run(
+        model, SSPRK33(), dt=dt, steps_per_call=N_STEPS
     )
-    Yp = fused(Y, 0.0)
+    Yp = segment(Y, 0.0)
     stage = np.load(GOLDEN)  # the stage-mode golden: must NOT be identical
     assert (
         float(np.max(np.abs(np.asarray(Yx["soil"]["vartheta_l"])
@@ -247,7 +245,7 @@ def test_lagged_production_mode_matches_golden_both_engines():
         )
         np.testing.assert_allclose(
             np.asarray(Yp["soil"][k]), golden[k], rtol=1e-12, atol=1e-16,
-            err_msg=f"pallas/{k}",
+            err_msg=f"segment/{k}",
         )
 
 
@@ -258,11 +256,11 @@ GOLDEN_IMPLICIT = os.path.join(
 
 def test_implicit_trbdf2_matches_golden_both_backends_and_engines():
     """TR-BDF2 at 12x the coupled golden's dt has its own frozen
-    trajectory: the Thomas backend reproduces it exactly (XLA and fused
-    kernel), and the PCR backend lands within the Newton-convergence
+    trajectory: the Thomas backend reproduces it exactly (XLA scan and
+    segment runner), and the PCR backend lands within the Newton-convergence
     neighborhood (different elimination order, same fixed point)."""
     from tests.data.golden_config import build_model_and_state
-    from landhydrology_tpu.imex import TRBDF2Soil
+    from landhydrology.imex import TRBDF2Soil
 
     golden = np.load(GOLDEN_IMPLICIT)
     model, Y, Ya, _ = build_model_and_state(jnp.float64)
@@ -285,14 +283,12 @@ def test_implicit_trbdf2_matches_golden_both_backends_and_engines():
             err_msg=f"thomas-xla/{k}",
         )
 
-    fused = make_fused_column_run(
-        model, st_th, dt=dt, steps_per_call=n, tile_cols=8, interpret=True
-    )
-    Yp = fused(Y, 0.0)
+    segment = make_segment_run(model, st_th, dt=dt, steps_per_call=n)
+    Yp = segment(Y, 0.0)
     for k in ("vartheta_l", "theta_i", "rho_e_int"):
         np.testing.assert_allclose(
             np.asarray(Yp["soil"][k]), golden[k], rtol=1e-12, atol=1e-16,
-            err_msg=f"thomas-fused/{k}",
+            err_msg=f"thomas-segment/{k}",
         )
 
     st_pcr = TRBDF2Soil(model=model, grid=grid, iters=3, tridiag="pcr")

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     PrescribedTemperatureModel,
     Simulation,
@@ -18,14 +18,15 @@ from landhydrology_tpu import (
     SoilParams,
     VerticalFlux,
 )
-from landhydrology_tpu.models.land import (
+from landhydrology.models.land import (
     LandModel,
     SurfaceWaterModel,
     initialize_states,
     make_rhs,
 )
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.segment import make_segment_run
+from landhydrology.timestepping import SSPRK33
 
 NZ = 30
 DZ = 1.5 / NZ
@@ -137,7 +138,7 @@ def test_pond_drains_after_rain_stops():
 
 
 def test_requires_dynamic_hydrology():
-    from landhydrology_tpu import PrescribedHydrologyModel
+    from landhydrology import PrescribedHydrologyModel
 
     soil = SoilModel(
         domain=Column(zlim=(-1.0, 0.0), nelements=8),
@@ -175,7 +176,7 @@ def test_runoff_routing_spreads_and_conserves():
     and total water is conserved exactly."""
     import dataclasses
 
-    from landhydrology_tpu.models.land import RunoffRouting
+    from landhydrology.models.land import RunoffRouting
 
     NX = NY = 8
     nz = 10
@@ -255,7 +256,7 @@ def test_land_model_atmos_top_needs_dynamic_energy_and_rain_sign():
     """A PrescribedAtmosForcing top face composes with the pond only when
     the energy component is dynamic (MOST needs the surface T); prescribed
     temperature still raises.  Negative rain raises eagerly."""
-    from landhydrology_tpu import PrescribedAtmosForcing, SoilEnergyModel
+    from landhydrology import PrescribedAtmosForcing, SoilEnergyModel
     import dataclasses
 
     soil = _land(lambda t: 0.0).soil
@@ -303,7 +304,7 @@ def _numpy_kinematic_tendency(h, z, n, dx, h_det, water_surface):
 
 
 def test_kinematic_wave_tendency_matches_numpy_oracle():
-    from landhydrology_tpu.models.land import (
+    from landhydrology.models.land import (
         KinematicWaveRouting,
         _kinematic_wave_tendency,
     )
@@ -329,7 +330,7 @@ def test_kinematic_wave_flows_downhill_and_conserves():
     exactly against zero rainfall input."""
     import dataclasses
 
-    from landhydrology_tpu.models.land import KinematicWaveRouting
+    from landhydrology.models.land import KinematicWaveRouting
 
     NX = NY = 8
     nz = 6
@@ -399,7 +400,7 @@ def test_pure_kinematic_ignores_pond_slope_on_flat_bed():
     """On a flat bed, diffusive-wave routing spreads a pond bump (its own
     surface drives flow) while pure kinematic routing (bed slope only)
     moves nothing."""
-    from landhydrology_tpu.models.land import (
+    from landhydrology.models.land import (
         KinematicWaveRouting,
         _kinematic_wave_tendency,
     )
@@ -428,7 +429,7 @@ def test_kinematic_wave_gradients_finite_at_equilibrium():
     sqrt'(0) is infinite, so the zero-slope branch needs a clamped operand."""
     import jax
 
-    from landhydrology_tpu.models.land import (
+    from landhydrology.models.land import (
         KinematicWaveRouting,
         _kinematic_wave_tendency,
     )
@@ -453,7 +454,7 @@ def test_kinematic_wave_gradients_finite_at_equilibrium():
 def test_kinematic_wave_dt_limit_flags_unstable_config():
     """The routing CFL estimator brackets the empirical stability edge of
     the downhill-drain configuration (dt=0.5 was marginal there)."""
-    from landhydrology_tpu.models.land import (
+    from landhydrology.models.land import (
         KinematicWaveRouting,
         kinematic_wave_dt_limit,
     )
@@ -481,7 +482,7 @@ def _atmos_land(precip, tau=60.0, h_smooth=1e-4, Ksat=1e-6):
     pond (the flagship rain + ponding + evaporation + energy config)."""
     import dataclasses
 
-    from landhydrology_tpu import PrescribedAtmosForcing, SoilEnergyModel
+    from landhydrology import PrescribedAtmosForcing, SoilEnergyModel
 
     soil = _land(lambda t: 0.0, Ksat=Ksat).soil
     soil = dataclasses.replace(
@@ -509,8 +510,8 @@ def _atmos_land(precip, tau=60.0, h_smooth=1e-4, Ksat=1e-6):
 
 
 def _ic_energy(z, m):
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
@@ -530,7 +531,7 @@ def test_atmos_land_matches_plain_soil_when_dry():
     """With no rain and no pond the composed rhs reduces exactly to the
     plain soil model under its own PrescribedAtmosForcing BC (MOST
     evaporation + heat flux; infiltration = 0)."""
-    from landhydrology_tpu.models.soil.rhs import make_rhs as make_soil_rhs
+    from landhydrology.models.soil.rhs import make_rhs as make_soil_rhs
 
     land = _atmos_land(lambda t: 0.0)
     Y, Ya = initialize_states(land, _ic_energy, 0.0, h_s0=0.0)
@@ -553,9 +554,9 @@ def test_rain_pond_evaporation_budget_closes():
     evaporates near the potential rate while it stands, and drains after."""
     import jax
 
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.models.land import surface_exchange, _diagnose_state_T
-    from landhydrology_tpu.timestepping import ForwardEuler
+    from landhydrology.domains import make_function_space
+    from landhydrology.models.land import surface_exchange, _diagnose_state_T
+    from landhydrology.timestepping import ForwardEuler
 
     rain = 8e-6  # above the infiltration capacity of the tight soil
     t_rain = 600.0
@@ -615,9 +616,9 @@ def test_rain_pond_evaporation_budget_closes():
 def test_pond_evaporates_at_potential_rate():
     """While a deep pond stands, the surface water flux is the potential
     (saturated-surface) MOST rate, independent of how dry the soil is."""
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.models.land import surface_exchange, _diagnose_state_T
-    from landhydrology_tpu.models.soil.surface_fluxes import (
+    from landhydrology.domains import make_function_space
+    from landhydrology.models.land import surface_exchange, _diagnose_state_T
+    from landhydrology.models.soil.surface_fluxes import (
         compute_turbulent_surface_fluxes,
     )
 
@@ -648,12 +649,12 @@ def test_pond_evaporates_at_potential_rate():
     assert float(E_pot) > float(E_dry)
 
 
-def test_land_model_pallas_engine_matches_xla():
-    """Simulation(engine='pallas') accepts LandModel (VERDICT r2 item 3):
-    the fused run matches the XLA engine on the batched flagship config."""
+def test_land_model_segment_matches_simulation():
+    """The segment runner on the batched flagship LandModel config matches
+    Simulation's scan over the same 48 steps."""
     import dataclasses
 
-    from landhydrology_tpu import PrescribedAtmosForcing, SoilEnergyModel
+    from landhydrology import PrescribedAtmosForcing, SoilEnergyModel
 
     ncol = 64
     soil = SoilModel(
@@ -683,8 +684,8 @@ def test_land_model_pallas_engine_matches_xla():
     )
 
     def ic(z, m):
-        from landhydrology_tpu.constants import default_earth_param_set as ps
-        from landhydrology_tpu.models.soil.heat import (
+        from landhydrology.constants import default_earth_param_set as ps
+        from landhydrology.models.soil.heat import (
             volumetric_heat_capacity,
             volumetric_internal_energy,
         )
@@ -707,26 +708,21 @@ def test_land_model_pallas_engine_matches_xla():
     kw = dict(Y_init=Y, Ya_init=Ya, dt=2.0, tspan=(0.0, 96.0), saveat=48.0)
     sim_x = Simulation(land, SSPRK33(), **kw)
     sol_x = sim_x.run()
-    sim_p = Simulation(
-        land, SSPRK33(), engine="pallas", steps_per_call=12, tile_cols=64,
-        **kw,
-    )
-    sol_p = sim_p.run()
+    assert len(sol_x) == 3  # t0 and the two saves
+    Yp = make_segment_run(
+        land, SSPRK33(), dt=kw["dt"], steps_per_call=48
+    )(kw["Y_init"], 0.0)
 
     assert float(jnp.max(sim_x.Y["surface"]["h_s"])) > 1e-5  # heavy rain ponds
     for k in Y["soil"]:
         np.testing.assert_allclose(
-            np.asarray(sim_p.Y["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
+            np.asarray(Yp["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
             rtol=1e-12, atol=1e-18, err_msg=k,
         )
     np.testing.assert_allclose(
-        np.asarray(sim_p.Y["surface"]["h_s"]),
+        np.asarray(Yp["surface"]["h_s"]),
         np.asarray(sim_x.Y["surface"]["h_s"]),
         rtol=1e-12, atol=1e-18,
-    )
-    # saved trajectories line up too
-    np.testing.assert_allclose(
-        np.asarray(sol_p.ts), np.asarray(sol_x.ts), rtol=1e-12
     )
 
 
@@ -738,8 +734,8 @@ def test_land_model_pallas_engine_matches_xla():
 def test_surface_update_validation_and_config_roundtrip():
     import dataclasses
 
-    from landhydrology_tpu.config import from_config, to_config
-    from landhydrology_tpu.models.land import ConstantPrecipitation
+    from landhydrology.config import from_config, to_config
+    from landhydrology.models.land import ConstantPrecipitation
 
     land = _atmos_land(ConstantPrecipitation(rate=4e-7))
     with pytest.raises(ValueError, match="surface_update"):
@@ -760,13 +756,13 @@ def test_surface_update_step_exact_for_single_stage_stepper():
 
     import jax
 
-    from landhydrology_tpu.timestepping import ForwardEuler
+    from landhydrology.timestepping import ForwardEuler
 
     land = _atmos_land(lambda t: 8e-6)
     Y0, Ya = initialize_states(land, _ic_energy, 0.0, h_s0=0.0)
 
     def run(land_v, n=12, dt=2.0):
-        from landhydrology_tpu.models.land import wrap_stepper_for_land
+        from landhydrology.models.land import wrap_stepper_for_land
 
         stepper = wrap_stepper_for_land(ForwardEuler(), land_v)
         rhs = make_rhs(land_v)
@@ -809,14 +805,14 @@ def test_surface_update_step_first_order():
 
     import jax
 
-    from landhydrology_tpu.domains import make_function_space
+    from landhydrology.domains import make_function_space
 
     land = _atmos_land(lambda t: 8e-6)  # rain + pond + MOST, SSPRK33
     Y0, Ya = initialize_states(land, _ic_energy, 0.0, h_s0=0.0)
     tf = 48.0
 
     def run(land_v, dt):
-        from landhydrology_tpu.models.land import wrap_stepper_for_land
+        from landhydrology.models.land import wrap_stepper_for_land
 
         stepper = wrap_stepper_for_land(SSPRK33(), land_v)
         rhs = make_rhs(land_v)
@@ -859,16 +855,16 @@ def test_surface_update_step_first_order():
     assert d2 < 1e-6, d2
 
 
-def test_surface_update_step_fused_matches_xla():
-    """engine='pallas' with surface_update='step' reproduces the XLA-engine
-    frozen-exchange trajectory exactly (both paths freeze at the same
-    states), and differs from the stage-level trajectory (the flag is
-    honored inside the kernel, not silently dropped)."""
+def test_surface_update_step_segment_matches_xla():
+    """The segment runner with surface_update='step' reproduces the
+    Simulation frozen-exchange trajectory exactly (both paths freeze at the
+    same states), and differs from the stage-level trajectory (the flag is
+    honored inside the segment, not silently dropped)."""
     import dataclasses
 
-    from landhydrology_tpu import PrescribedAtmosForcing, SoilEnergyModel
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology import PrescribedAtmosForcing, SoilEnergyModel
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
@@ -920,11 +916,9 @@ def test_surface_update_step_fused_matches_xla():
     kw = dict(Y_init=Y, Ya_init=Ya, dt=2.0, tspan=(0.0, 96.0))
     sim_x = Simulation(land, SSPRK33(), **kw)
     sim_x.run()
-    sim_p = Simulation(
-        land, SSPRK33(), engine="pallas", steps_per_call=12, tile_cols=64,
-        **kw,
-    )
-    sim_p.run()
+    Yp = make_segment_run(
+        land, SSPRK33(), dt=kw["dt"], steps_per_call=48
+    )(kw["Y_init"], 0.0)
     sim_stage = Simulation(
         dataclasses.replace(land, surface_update="stage"), SSPRK33(), **kw
     )
@@ -932,11 +926,11 @@ def test_surface_update_step_fused_matches_xla():
 
     for k in Y["soil"]:
         np.testing.assert_allclose(
-            np.asarray(sim_p.Y["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
+            np.asarray(Yp["soil"][k]), np.asarray(sim_x.Y["soil"][k]),
             rtol=1e-12, atol=1e-18, err_msg=k,
         )
     np.testing.assert_allclose(
-        np.asarray(sim_p.Y["surface"]["h_s"]),
+        np.asarray(Yp["surface"]["h_s"]),
         np.asarray(sim_x.Y["surface"]["h_s"]),
         rtol=1e-12, atol=1e-18,
     )
@@ -954,12 +948,12 @@ def test_surface_update_step_conserves_water():
     used)."""
     import jax
 
-    from landhydrology_tpu.domains import make_function_space
-    from landhydrology_tpu.models.land import (
+    from landhydrology.domains import make_function_space
+    from landhydrology.models.land import (
         FrozenExchangeStepper,
         _exchange_from_state,
     )
-    from landhydrology_tpu.timestepping import ForwardEuler
+    from landhydrology.timestepping import ForwardEuler
 
     land = _atmos_land(lambda t: 8e-6)
     import dataclasses as dc

@@ -5,8 +5,8 @@ records."""
 import numpy as np
 import pytest
 
-from landhydrology_tpu.runtime import io as rio
-from landhydrology_tpu.runtime import TrajectorySink, native_available, read_trajectory
+from landhydrology.runtime import io as rio
+from landhydrology.runtime import TrajectorySink, native_available, read_trajectory
 
 
 def _records(n=5, seed=0):
@@ -94,7 +94,7 @@ def test_append_mode_preserves_previous_records(tmp_path):
     import pytest as _pytest
 
     path2 = str(tmp_path / "traj_app_py.bin")
-    import landhydrology_tpu.runtime.io as rio2
+    import landhydrology.runtime.io as rio2
 
     orig = (rio2._lib, rio2._lib_tried)
     try:

@@ -5,13 +5,13 @@ the single best bit-level check in the reference
 import jax.numpy as jnp
 import numpy as np
 
-from landhydrology_tpu.ops.stencil import (
+from landhydrology.ops.stencil import (
     diffusive_flux_faces,
     div_f2c,
     grad_c2f_interior,
     interp_c2f_interior,
 )
-from landhydrology_tpu.ops.tridiag import thomas_solve
+from landhydrology.ops.tridiag import thomas_solve
 
 
 def test_interp_and_grad():
@@ -79,7 +79,7 @@ def test_pcr_solve_matches_dense_and_thomas():
     dominant batches, for power-of-2 and odd sizes."""
     import numpy as np
 
-    from landhydrology_tpu.ops.tridiag import pcr_solve
+    from landhydrology.ops.tridiag import pcr_solve
 
     rng = np.random.default_rng(5)
     for n in (1, 2, 7, 16, 24, 64):
@@ -112,8 +112,8 @@ def test_backward_euler_delta_single_cell_shape():
     """nz == 1 column: the tridiagonal assembly degenerates to a diagonal
     solve and must preserve the (1, batch) shape (the concat-based
     assembly once duplicated the lone row)."""
-    from landhydrology_tpu.domains import ColumnGrid
-    from landhydrology_tpu.imex import _backward_euler_delta
+    from landhydrology.domains import ColumnGrid
+    from landhydrology.imex import _backward_euler_delta
 
     grid = ColumnGrid(
         zc=np.zeros((1, 1)), zf=np.zeros((2, 1)), dz=0.5, nz=1,

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu.timestepping import (
+from landhydrology.timestepping import (
     ForwardEuler,
     SSPRK22,
     SSPRK33,

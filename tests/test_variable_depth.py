@@ -7,7 +7,7 @@ formula (including the half-cell Dirichlet distance of the reference,
 ``boundary_conditions.jl:196-208``) broadcasts over the per-column spacing.
 Columns are physically independent, so a mixed-depth batch must reproduce
 the equivalent single-depth runs column by column — on the XLA path and
-inside the fused Pallas kernel (which streams dz/zc as tiled inputs).
+inside the segment runner.
 """
 
 import dataclasses
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from landhydrology_tpu import (
+from landhydrology import (
     Column,
     Dirichlet,
     FreeDrainage,
@@ -34,8 +34,8 @@ from landhydrology_tpu import (
     initialize_states,
     make_function_space,
 )
-from landhydrology_tpu.models.soil import vanGenuchten
-from landhydrology_tpu.timestepping import SSPRK33
+from landhydrology.models.soil import vanGenuchten
+from landhydrology.timestepping import SSPRK33
 
 NZ = 24
 DEPTHS = [0.8, 1.5, 3.0]
@@ -171,8 +171,8 @@ def test_mass_conservation_per_column_depth():
 def test_coupled_energy_runs_on_variable_depth():
     """Fully coupled water+energy on a mixed-depth batch stays finite and
     matches per-depth single runs."""
-    from landhydrology_tpu.constants import default_earth_param_set as ps
-    from landhydrology_tpu.models.soil.heat import (
+    from landhydrology.constants import default_earth_param_set as ps
+    from landhydrology.models.soil.heat import (
         volumetric_heat_capacity,
         volumetric_internal_energy,
     )
@@ -234,10 +234,10 @@ def test_coupled_energy_runs_on_variable_depth():
             )
 
 
-def test_pallas_kernel_streams_variable_dz():
-    """The fused kernel (interpret mode) must match the XLA path on a
-    variable-depth batch — dz/zc are streamed as tiled inputs."""
-    from landhydrology_tpu.ops.pallas import make_fused_column_run
+def test_segment_variable_dz_matches_xla():
+    """The segment runner must match the step-by-step XLA path on a
+    variable-depth batch."""
+    from landhydrology.segment import make_segment_run
 
     ncol = 8
     rng = np.random.default_rng(1)
@@ -247,12 +247,12 @@ def test_pallas_kernel_streams_variable_dz():
     Y, Ya = initialize_states(model, _ic, 0.0)
 
     steps, dt = 6, 0.25
-    fused = make_fused_column_run(
-        model, SSPRK33(), dt=dt, steps_per_call=steps, tile_cols=4, interpret=True
+    segment = make_segment_run(
+        model, SSPRK33(), dt=dt, steps_per_call=steps,
     )
-    Y_pallas = fused(Y, 0.0)
+    Y_segment = segment(Y, 0.0)
 
-    from landhydrology_tpu.models.soil.rhs import make_rhs
+    from landhydrology.models.soil.rhs import make_rhs
 
     rhs = make_rhs(model)
     stepper = SSPRK33()
@@ -262,7 +262,7 @@ def test_pallas_kernel_streams_variable_dz():
         Y_xla = stepper.step(rhs, Y_xla, Ya, t, jnp.asarray(dt))
         t = t + dt
     np.testing.assert_allclose(
-        np.asarray(Y_pallas["soil"]["vartheta_l"]),
+        np.asarray(Y_segment["soil"]["vartheta_l"]),
         np.asarray(Y_xla["soil"]["vartheta_l"]),
         rtol=1e-12,
         atol=1e-15,
@@ -273,7 +273,7 @@ def test_implicit_stepper_on_variable_depth():
     """BackwardEulerRichards (batched Thomas solve) handles per-column dz:
     a 60x-CFL dt run stays finite and matches the mixed-depth explicit
     solution to discretization accuracy."""
-    from landhydrology_tpu.imex import BackwardEulerRichards
+    from landhydrology.imex import BackwardEulerRichards
 
     dom = VariableDepthColumn(
         z_bottom=jnp.asarray([-d for d in DEPTHS]), nelements=NZ, batch_shape=(3,)
@@ -293,7 +293,7 @@ def test_implicit_stepper_on_variable_depth():
 
 
 def test_config_roundtrip_variable_depth():
-    from landhydrology_tpu.config import from_config, to_config
+    from landhydrology.config import from_config, to_config
 
     dom = VariableDepthColumn(
         z_bottom=jnp.asarray([-d for d in DEPTHS]), nelements=NZ, batch_shape=(3,)
